@@ -1,0 +1,88 @@
+"""zerokit_tpu_torch stands alone: no JAX, no zerokit_tpu, verbatim copies.
+
+The port runs on hosts without JAX, so importing it (down to the prover)
+must not pull JAX in. The modules it copies from the JAX package must stay
+the same code: their text equals the source once import lines are removed.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+VERBATIM = [
+    "constants.py",
+    "hostmath/bn254.py",
+    "hostmath/arkserde.py",
+    "circuit/graph.py",
+    "circuit/zkey.py",
+    "circuit/witness_host.py",
+]
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import zerokit_tpu_torch\n"
+        "import zerokit_tpu_torch.groth16.prover\n"
+        "import zerokit_tpu_torch.groth16.verifier\n"
+        "import zerokit_tpu_torch.resources\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.'))\n"
+        "             or m == 'zerokit_tpu')\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=REPO, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"imported: {out.stdout.strip()}"
+
+
+def test_no_source_line_imports_jax_or_the_jax_package():
+    """Also catches imports inside functions, which the check above only
+    sees when they run."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|zerokit_tpu)(\.|\s|$)")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "zerokit_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offending = []
+    for path in paths:
+        with open(path) as f:
+            offending += [
+                f"{os.path.relpath(path, REPO)}: {line.strip()}"
+                for line in f if pattern.match(line)
+            ]
+    assert offending == []
+
+
+def _strip_imports(text: str):
+    lines = []
+    skipping = False
+    for line in text.splitlines():
+        if skipping:
+            skipping = not line.rstrip().endswith(")")
+            continue
+        if line.startswith(("import ", "from ")):
+            skipping = line.rstrip().endswith("(")
+            continue
+        lines.append(line)
+    return lines
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_verbatim_copy_matches_source(rel):
+    with open(os.path.join(REPO, "zerokit_tpu", rel)) as f:
+        src = _strip_imports(f.read())
+    with open(os.path.join(REPO, "zerokit_tpu_torch", rel)) as f:
+        port = _strip_imports(f.read())
+    assert port == src
