@@ -1,18 +1,25 @@
-"""Drives zerokit_tpu_torch's proving path once on one NVIDIA GPU.
+"""Drives zerokit_tpu_torch's proving path and tools path on one NVIDIA GPU.
 
 Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py
 
 Phases: (1) device, (2) build of the CUDA kernels from csrc/ and load of
-the depth-20 circuit, (3) every kernel against its plain PyTorch version,
-bit for bit, on the same tensors on the card, at the shapes the proving
-path gives it, with both timed on the card, (4) a batch of 16 depth-20 RLN
-proofs through Groth16Prover.prove_batch with pairing verification and
-lane-0 MSMs held against the native host MSMs, (5) a second, warm batch,
-(6) the kernels' launch counts in the proving run of phase 4. Any failed
-check raises, so the script exits non-zero. It imports no JAX. The line
-before the last is the kernel JSON, the last line the device JSON.
+the depth-20 circuit, (3) every kernel of the proving path against its
+plain PyTorch version, bit for bit, on the same tensors on the card, at the
+shapes the proving path gives it, with both timed on the card, (4) a batch
+of 16 depth-20 RLN proofs through Groth16Prover.prove_batch with pairing
+verification and lane-0 MSMs held against the native host MSMs, (5) a
+second, warm batch, (6) the kernels' launch counts in the proving runs of
+phases 4 and 5, (7) the K6 tool: K6 (tensor-core Montgomery product)
+against its plain version and K1 fq at 2^17 lanes, (8) the tools path with
+its launch counts: the microbenchmark, whose chains are checked against
+their plain version at the shape they are timed at, and the profile of a
+warm batch (device busy share, top kernels), (9) each kernel's work, bound
+and share of the bound. Times are CUDA-event times of calls run back
+to back (profiling.device_ms).
+Any failed check raises, so the script exits non-zero. It imports no JAX.
+The line before the last is the kernel JSON, the last line the device JSON.
 """
 
 from __future__ import annotations
@@ -42,22 +49,6 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean device time of fn() over reps calls, by CUDA events; one
-    warm-up call first unless the caller has just run fn."""
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
@@ -82,25 +73,32 @@ def on_card(arr: np.ndarray) -> torch.Tensor:
 
 class KernelChecks:
     """Runs kernel and plain version on the same card tensors, requires
-    equal integers, and keeps each check's error and times."""
+    equal integers, and keeps each check's error, device times
+    (profiling.device_ms) and the shape that profiling.kernel_work reads."""
 
     def __init__(self):
         self.errors: dict = {}
         self.times: dict = {}
+        self.rows: list = []  # (key, what, ms, shape)
 
-    def run(self, key: str, what: str, kernel, plain, reps: int = 10) -> None:
-        got = kernel()
-        want = plain()  # also the plain version's warm-up
+    def run(self, key: str, what: str, kernel, plain, shape, reps: int = 10) -> None:
+        from zerokit_tpu_torch.runtime.profiling import device_ms, host_call
+
+        got, kernel_s = host_call(kernel)  # also the kernel's warm-up
+        want, plain_s = host_call(plain)  # and the plain version's
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         log(f"  {key} {what}: max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"{key} {what}: kernel disagrees with its plain version")
+        self.record(key, what, err, device_ms(kernel, reps, kernel_s),
+                    device_ms(plain, 1, plain_s), shape)
+
+    def record(self, key: str, what: str, err: int, ms: float, plain_ms: float, shape) -> None:
         self.errors.setdefault(key, []).append(err)
-        ms = cuda_ms(kernel, reps)
-        plain_ms = cuda_ms(plain, 1, warm=False)
-        self.times.setdefault(key, (ms, plain_ms, what))
-        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (both on the card)")
+        self.times.setdefault(key, (ms, plain_ms, what, shape))
+        self.rows.append((key, what, ms, shape))
+        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (on the card, calls back to back)")
 
 
 def ec_inputs(rng, comps: int, n: int):
@@ -161,7 +159,8 @@ def phase_kernels(rng, prover) -> KernelChecks:
         a = on_card(random_elems(rng, p, n1))
         b = on_card(random_elems(rng, p, n1)[:, ::-1])
         checks.run("K1", f"mont_mul {name}, {n1} lanes",
-                   lambda: fk.mont_mul(name, a, b), lambda: fk.mont_mul_plain(name, a, b))
+                   lambda: fk.mont_mul(name, a, b), lambda: fk.mont_mul_plain(name, a, b),
+                   {"lanes": n1, "field": name})
     # K2 ----------------------------------------------------------------
     for comps in (1, 2):
         n2 = shapes[comps]["buckets"]
@@ -177,7 +176,9 @@ def phase_kernels(rng, prover) -> KernelChecks:
                 aff[:, :, :, 3] = 0  # the (0, 0) affine sentinel
                 q = on_card(aff)
             checks.run("K2", f"ec_op g{comps} {op}, {n2} lanes",
-                       lambda: fk.ec_op(op, comps, p, q), lambda: fk.ec_op_plain(op, comps, p, q))
+                       lambda: fk.ec_op(op, comps, p, q), lambda: fk.ec_op_plain(op, comps, p, q),
+                       {"op": op, "comps": comps, "lanes": n2,
+                        "skipped": 1 if op == "add_mixed" else 0})
     # K3 ----------------------------------------------------------------
     for comps in (1, 2):
         for kind, stage in (("mixed", "fine"), ("excl", "coarse")):
@@ -191,7 +192,9 @@ def phase_kernels(rng, prover) -> KernelChecks:
             x = on_card(x_np)
             checks.run("K3", f"ec_scan g{comps} {kind} ({stage}), k={k}, N={n}",
                        lambda: fk.ec_scan_rows(comps, x, kind),
-                       lambda: fk.ec_scan_rows_plain(comps, x, kind), reps=3)
+                       lambda: fk.ec_scan_rows_plain(comps, x, kind),
+                       {"kind": kind, "comps": comps, "k": k, "lanes": n,
+                        "skipped": k if kind == "mixed" else 0}, reps=3)
     # K4 + K5 at the witness map's shape: a/b/c of BATCH lanes -------------
     n_dom, rows_3b = prover.mapper.domain_size, 3 * BATCH
     root = ntt_host.coset_root_2n(n_dom)
@@ -202,17 +205,21 @@ def phase_kernels(rng, prover) -> KernelChecks:
             tw = nk._stage_tw(n_dom, m, inverse, "cuda")
             checks.run("K4", f"ntt_stage {direction} m={m}, (16, {rows_3b}, {n_dom})",
                        lambda: nk.ntt_stage(x, tw, m, direction),
-                       lambda: nk.ntt_stage_plain(x, tw, m, direction))
+                       lambda: nk.ntt_stage_plain(x, tw, m, direction),
+                       {"rows": rows_3b, "n": n_dom, "m": m, "dif": direction == "dif"})
             m //= 2
         tail_tw = nk._tail_tw(n_dom, inverse, "cuda")
         for table in (nk._coset_table(n_dom, root, "cuda"), None):
             fused = "with" if table is not None else "without"
             checks.run("K5", f"ntt_tail {direction} {fused} table, (16, {rows_3b}, {n_dom})",
                        lambda: nk.ntt_tail(x, tail_tw, table, direction),
-                       lambda: nk.ntt_tail_plain(x, tail_tw, table, direction))
+                       lambda: nk.ntt_tail_plain(x, tail_tw, table, direction),
+                       {"rows": rows_3b, "n": n_dom, "table": table is not None,
+                        "dif": direction == "dif"})
     checks.run("K4+K5", f"coset_lift_bn, (16, {rows_3b}, {n_dom})",
                lambda: nk.coset_lift_bn(x, root),
-               lambda: ntt_host.coset_lift(x.transpose(1, 2), root).transpose(1, 2), reps=3)
+               lambda: ntt_host.coset_lift(x.transpose(1, 2), root).transpose(1, 2),
+               {"rows": rows_3b, "n": n_dom}, reps=3)
     return checks
 
 
@@ -221,57 +228,11 @@ def phase_kernels(rng, prover) -> KernelChecks:
 # ---------------------------------------------------------------------------
 
 
-def named_inputs(rng, batch: int, depth: int):
-    """Batched witness inputs shaped like RLN.generate_proofs builds them
-    (name -> slots -> lanes): seeded Fr values, userMessageLimit 100,
-    messageId 1."""
-    from zerokit_tpu_torch.constants import R
-
-    def fr():
-        return int.from_bytes(rng.bytes(32), "little") % R
-
-    lanes = []
-    for _ in range(batch):
-        lanes.append({
-            "identitySecret": [fr()],
-            "userMessageLimit": [100],
-            "messageId": [1],
-            "pathElements": [fr() for _ in range(depth)],
-            "identityPathIndex": [int(v) for v in rng.integers(0, 2, size=depth)],
-            "x": [fr()],
-            "externalNullifier": [fr()],
-        })
-    return {
-        name: [[lane[name][slot] for lane in lanes] for slot in range(len(lanes[0][name]))]
-        for name in lanes[0]
-    }
-
-
-def ensure_native():
-    from zerokit_tpu_torch.runtime import build, native
-
-    if not native.available():
-        log("native: the tracked library did not load; building with g++")
-        build.build()
-    if not native.available():
-        raise RuntimeError("native host library unavailable")
-    log(f"native: {os.path.relpath(native.loaded_path())} (assembly: "
-        f"{'native batched' if native.assemble_available() else 'python'}, pairing: "
-        f"{'native' if native.pairing_available() else 'python'})")
-
-
-def prove_and_check(prover, rng, metrics) -> float:
-    from zerokit_tpu_torch.constants import R
+def verify_batch(prover, proofs) -> None:
+    """Pairing-verifies the proofs of the prover's last batch."""
     from zerokit_tpu_torch.ff.field import decode_canonical_fast
     from zerokit_tpu_torch.groth16.verifier import prepare_verifying_key, verify_proof
 
-    named = named_inputs(rng, BATCH, DEPTH)
-    rs = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(BATCH)]
-    ss = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(BATCH)]
-    t0 = time.perf_counter()
-    proofs = prover.prove_batch(named, rs, ss, metrics=metrics)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     if len(proofs) != BATCH:
         raise AssertionError(f"expected {BATCH} proofs, got {len(proofs)}")
     zc = prover.last_batch["z_canon"].cpu()
@@ -280,6 +241,17 @@ def prove_and_check(prover, rng, metrics) -> float:
         if not verify_proof(pvk, proof, decode_canonical_fast(zc[:, 1:6, b])):
             raise AssertionError(f"proof {b} failed pairing verification")
     log(f"  {len(proofs)} proofs verified (pairing)")
+
+
+def prove_and_check(prover, rng, metrics) -> float:
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+
+    named, rs, ss = random_batch_inputs(rng, BATCH, DEPTH)
+    t0 = time.perf_counter()
+    proofs = prover.prove_batch(named, rs, ss, metrics=metrics)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    verify_batch(prover, proofs)
     return wall
 
 
@@ -305,13 +277,120 @@ def check_lane0(prover):
     log("  lane-0 MSMs a, b1, b2, l, h equal the native host MSMs")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-9: the tools path
+# ---------------------------------------------------------------------------
+
+
+def phase_tool_kernels(checks: KernelChecks) -> None:
+    """K6 through its tool at 2^17 lanes: against its plain version and K1
+    fq bit for bit, and timed; its tensor-core instructions in the SASS.
+    The microbenchmark chains' SASS (the chains are held against their
+    plain version at their timed shape inside the tool, phase 8)."""
+    from zerokit_tpu_torch.ff import _cuda
+    from zerokit_tpu_torch.tools import microbench as mb
+    from zerokit_tpu_torch.tools import tc_mont_prototype as tc
+
+    n6 = 1 << 17
+    rep = tc.main(n6)
+    checks.record("K6", f"mont_mul_tc fq, {n6} lanes", 0, rep["k6_ms"], rep["plain_ms"],
+                  {"lanes": n6})
+    sass = _cuda.sass_opcodes("mont_tc_kernel")
+    imma = {op: c for op, c in sass.items() if op.startswith("IMMA")}
+    log(f"  SASS of mont_tc_kernel (cuobjdump -sass): {imma}, "
+        f"IMAD* {sum(c for op, c in sass.items() if op.startswith('IMAD'))}")
+    if not imma:
+        raise AssertionError("mont_tc_kernel has no IMMA (tensor-core) instruction")
+    for op in mb.OPS:
+        ops = _cuda.sass_opcodes(f"chain_kernelILi{mb.OPS[op]}E")
+        log(f"  SASS of chain_kernel<{mb.OPS[op]}> ({op}): {dict(ops.most_common(6))}")
+
+
+def phase_tools_path(rng, prover, chip_label: str) -> dict:
+    """The tools path, as a user runs it: the microbenchmark (chains, tensor
+    cores, K1 / K2 / K6 lane throughput) and the profile of a warm batch,
+    with every launch counter at 0 before and read after."""
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+    from zerokit_tpu_torch.runtime.profiling import launch_counts, reset_launches
+    from zerokit_tpu_torch.tools import microbench as mb
+    from zerokit_tpu_torch.tools import profile_batch as pb
+
+    reset_launches()
+    mb_rep = mb.main()
+    rep = pb.profile_batch(prover, random_batch_inputs(rng, BATCH, DEPTH))
+    verify_batch(prover, rep["proofs"])
+    pb.print_report(rep, chip_label, log)
+    counts = launch_counts()
+    log(f"  launches on the tools path: {counts}")
+    for counter in ("mont_mul_tc", "chain"):
+        if counts[counter] <= 0:
+            raise AssertionError(f"{counter} was not launched on the tools path")
+    return {"counts": counts, "chip": mb_rep["chip"], "profile": rep}
+
+
+def kernel_template(key: str, shape: dict):
+    """The kernel's name as the profiler shows it (csrc template and its
+    arguments), for the check's variant; None for the composite K4+K5."""
+    elem = "zk::Elem<zk::FqTag>, 1" if shape.get("comps") == 1 else "zk::Fq2E, 2"
+    if key == "K1":
+        return f"mont_mul_kernel<zk::{'FrTag' if shape['field'] == 'fr' else 'FqTag'}>("
+    if key == "K2":
+        op = ("add", "add_mixed", "double").index(shape["op"])
+        return f"ec_op_kernel<{elem.rsplit(',', 1)[0]}, {op}>("
+    if key == "K3":
+        return f"ec_scan_kernel<{elem}, {int(shape['kind'] == 'excl')}>("
+    if key == "K4":
+        return f"ntt_stage_kernel<{int(shape['dif'])}>("
+    if key == "K5":
+        return f"ntt_tail_kernel<{int(shape['dif'])}, {int(shape['table'])}>("
+    if key == "K6":
+        return "mont_tc_kernel("
+    return None
+
+
+def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
+    """Prints each check's work, bound and share of the bound, then ranks
+    the kernel variants by launches x (time - bound) in the profiled warm
+    batch: the variant's device time there times (1 - its share of the
+    bound at the checked width), since the warm batch runs some variants at
+    other widths. Returns the bound of the check each key's JSON entry
+    times."""
+    from zerokit_tpu_torch.runtime.profiling import kernel_bound, kernel_work, tensor_ops
+
+    first, ranking, seen = {}, [], set()
+    warm_kernels = profile["top_all"]
+    for key, what, ms, shape in checks.rows:
+        imads, nbytes = kernel_work(key, **shape)
+        sec, res = kernel_bound(key, chip, **shape)
+        first.setdefault(key, (sec * 1e3, res))
+        tops = tensor_ops(key, **shape)
+        log(f"  {key} {what}: {imads} IMAD, {nbytes} B"
+            + (f", {tops} tensor ops" if tops else "")
+            + f"; bound {sec * 1e3:.4f} ms ({res}); kernel {ms:.4f} ms, "
+            f"share {sec * 1e3 / ms:.1%}; launches per warm batch {warm.get(key, 0)}")
+        tmpl = kernel_template(key, shape)
+        if tmpl is not None and tmpl not in seen:
+            seen.add(tmpl)
+            n = sum(c for name, _, c in warm_kernels if tmpl in name)
+            us = sum(t for name, t, _ in warm_kernels if tmpl in name)
+            share = sec * 1e3 / ms
+            ranking.append((us / 1e3 * (1 - share), n, us / 1e3, share, key, what, tmpl))
+    log("  ranking by launches x (time - bound) in the profiled warm batch:")
+    for loss, n, warm_ms, share, key, what, tmpl in sorted(ranking, reverse=True):
+        log(f"    {loss:8.3f} ms = {warm_ms:.3f} ms in {n} launches x (1 - {share:.3f})  "
+            f"[{tmpl[:-1]}; share at {key} {what}]")
+    return first
+
+
 KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
     "K1": ("mont_mul", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "mont_mul"),
     "K2": ("ec_op", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "ec_op"),
     "K3": ("ec_scan", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:789", "ec_scan_rows"),
     "K4": ("ntt_stage", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:201", "ntt_stage"),
     "K5": ("ntt_tail", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:245", "ntt_tail"),
+    "K6": ("mont_mul_tc", "mont_tc.cu", "tools/mxu_mont_prototype.py:131", "mont_mul_tc"),
 }
+PROVING_PATH = ("K1", "K2", "K3", "K4", "K5")
 
 
 def main() -> int:
@@ -324,11 +403,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from zerokit_tpu_torch.ff import _cuda
-    from zerokit_tpu_torch.ff import field_kernels as fk
-    from zerokit_tpu_torch.ff import ntt_kernels as nk
     from zerokit_tpu_torch.groth16.prover import Groth16Prover
     from zerokit_tpu_torch.resources import load_circuit
-    from zerokit_tpu_torch.runtime.profiling import PipelineMetrics
+    from zerokit_tpu_torch.runtime import native
+    from zerokit_tpu_torch.runtime.profiling import (PipelineMetrics, launch_counts,
+                                                     reset_launches)
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -356,34 +435,64 @@ def main() -> int:
 
     # 4. the slice --------------------------------------------------------
     log(f"[4] depth-{DEPTH} batch of {BATCH} through Groth16Prover.prove_batch")
-    ensure_native()
-    fk.reset_launches()
-    nk.reset_launches()
+    native.ensure_loaded(log)
+    reset_launches()
     m1 = PipelineMetrics()
     wall1 = prove_and_check(prover, rng, m1)
-    counts = {**fk.launches, **nk.launches}
+    counts = launch_counts()
     log(f"  first batch (window tables built inside): {wall1:.3f} s; stages {m1.dumps()}")
     check_lane0(prover)
 
     # 5. warm batch -------------------------------------------------------
     log("[5] second (warm) batch")
+    reset_launches()
     m2 = PipelineMetrics()
     wall2 = prove_and_check(prover, rng, m2)
+    warm_counts = launch_counts()
     log(f"  warm batch: {wall2:.3f} s, {BATCH / wall2:.3f} proofs/s on {smi}; "
         f"stages {m2.dumps()}")
 
     # 6. launch counts ----------------------------------------------------
     log(f"[6] launches in the proving run of phase 4: {counts}")
+    log(f"    launches in the warm batch of phase 5: {warm_counts}")
+    for key in PROVING_PATH:
+        counter = KERNELS[key][3]
+        if counts[counter] <= 0:
+            raise AssertionError(f"{key} {KERNELS[key][0]} was not launched on the proving path")
+
+    # 7. the tools path's kernels against their plain versions --------------
+    log("[7] the K6 tool: K6 against its plain version and K1 fq, on the card")
+    phase_tool_kernels(checks)
+
+    # 8. the tools path ---------------------------------------------------
+    log("[8] the tools path: microbenchmark, profile of a warm batch")
+    tools = phase_tools_path(rng, prover, smi)
+
+    # 9. bounds -----------------------------------------------------------
+    chip = tools["chip"]
+    log(f"[9] work, bound and share of the bound ({chip.label()}; IMAD peak "
+        f"{chip.imad_per_sec / 1e12:.3f} Top/s, HBM {chip.hbm_bytes_per_sec / 1e12:.2f} TB/s, "
+        f"int8 tensor {chip.int8_tensor_ops_per_sec / 1e15:.3f} Pop/s)")
+    prof_rep = tools["profile"]
+    log(f"  device busy share of a warm batch: {prof_rep['busy_share']} traced; untraced "
+        f"{prof_rep['device_us'] / 1e6 / wall2:.4f} (the traced batch's "
+        f"{prof_rep['device_us'] / 1e3:.3f} ms of device events over phase 5's "
+        f"{wall2:.3f} s); {smi}")
+    warm_by_key = {key: warm_counts[KERNELS[key][3]] for key in KERNELS}
+    bound = bounds(checks, chip, warm_by_key, tools["profile"])
+
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
-        if counts[counter] <= 0:
-            raise AssertionError(f"{key} {kname} was not launched on the proving path")
-        ms, plain_ms, what = checks.times[key]
+        ms, plain_ms, what, _ = checks.times[key]
+        bound_ms, res = bound[key]
+        main_counts = counts if key in PROVING_PATH else tools["counts"]
         kernels.append({
             "name": f"{kname} ({key}: {what})", "route": "cuda",
             "source": f"zerokit_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": counts[counter], "max_abs_err": max(checks.errors[key]),
-            "ms": ms, "plain_ms": plain_ms,
+            "launches": main_counts[counter], "launches_warm": warm_by_key[key],
+            "max_abs_err": max(checks.errors[key]), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if res == "hbm" else "operations",
+            "library_ms": None,
         })
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)

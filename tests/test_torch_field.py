@@ -50,7 +50,7 @@ def test_numpy_limbs_round_trip():
     back = tfield.to_numpy_limbs(t)
     assert back.dtype == np.uint32 and np.array_equal(back, arr)
     with pytest.raises(ValueError):
-        tfield.from_numpy_limbs(np.full((16, 1), 1 << 16, dtype=np.uint32))
+        tfield.from_numpy_limbs(np.full((16, 1), 1 << 16, dtype=np.uint32), "cpu")
 
 
 @pytest.mark.parametrize("name", ["fr", "fq"])

@@ -1,8 +1,9 @@
 """zerokit_tpu_torch stands alone: no JAX, no zerokit_tpu, verbatim copies.
 
-The port runs on hosts without JAX, so importing it (down to the prover)
-must not pull JAX in. The modules it copies from the JAX package must stay
-the same code: their text equals the source once import lines are removed.
+The port runs on hosts without JAX, so importing it (down to the prover and
+its tools) must not pull in JAX, the JAX package or the repository's tools/.
+The modules it copies from the JAX package must stay the same code: their
+text equals the source once import lines are removed.
 """
 
 import os
@@ -34,9 +35,13 @@ def test_import_pulls_in_no_jax():
         "import zerokit_tpu_torch.groth16.prover\n"
         "import zerokit_tpu_torch.groth16.verifier\n"
         "import zerokit_tpu_torch.resources\n"
+        "import zerokit_tpu_torch.runtime.profiling\n"
+        "import zerokit_tpu_torch.tools.tc_mont_prototype\n"
+        "import zerokit_tpu_torch.tools.microbench\n"
+        "import zerokit_tpu_torch.tools.profile_batch\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.'))\n"
-        "             or m == 'zerokit_tpu')\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.', 'tools.'))\n"
+        "             or m in ('zerokit_tpu', 'tools', 'mxu_mont_prototype'))\n"
         "print(','.join(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -51,7 +56,7 @@ def test_import_pulls_in_no_jax():
 def test_no_source_line_imports_jax_or_the_jax_package():
     """Also catches imports inside functions, which the check above only
     sees when they run."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|zerokit_tpu)(\.|\s|$)")
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|zerokit_tpu|tools)(\.|\s|$)")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "zerokit_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]

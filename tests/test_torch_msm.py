@@ -80,7 +80,7 @@ def test_msm_matches_native(curve, n):
     msm = msm_for(curve, n)
     assert msm.n == (n if n <= 64 else PAD_GRANULARITY)
     jax_enc = jax_encode_affine_points(list(bases(curve, n, 0)), CURVES[curve][1])
-    assert torch.equal(msm.points[..., :n], from_numpy_limbs(jax_enc))
+    assert torch.equal(msm.points[..., :n], from_numpy_limbs(jax_enc, "cpu"))
     assert not msm.points[..., n:].any()  # padding: (0, 0) points at infinity
     rng = np.random.default_rng(n + len(curve))
     vals, mask = scalars_and_mask(rng, n, BATCH)

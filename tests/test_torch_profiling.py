@@ -1,0 +1,299 @@
+"""The port's profiling module against the JAX package's, and its new parts.
+
+The cost model (EC_ADD_MONT_MULS, msm_mont_muls, proof_cost_mont_muls) is
+copied and must give the JAX package's numbers; kernel_work / kernel_bound
+are held against hand-computed shapes, busy_share against synthetic
+intervals, and trace() / span() are rehearsed on a CPU-only profile of a
+small witness map and MSM. The entry points default to the card: on a host
+without one they raise unless the caller names the CPU.
+"""
+
+import inspect
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from zerokit_tpu.groth16.setup import groth16_setup
+from zerokit_tpu.runtime import profiling as jprof
+from zerokit_tpu_torch.circuit.zkey import ConstraintMatrices
+from zerokit_tpu_torch.constants import R
+from zerokit_tpu_torch.ff import field as tfield
+from zerokit_tpu_torch.ff.field import FrField, encode_canonical_fast
+from zerokit_tpu_torch.ff.fq2 import FqAdapter
+from zerokit_tpu_torch.groth16.msm import MSM
+from zerokit_tpu_torch.groth16.prover import Groth16Prover
+from zerokit_tpu_torch.groth16.qap import SparseMatrix, WitnessMapper
+from zerokit_tpu_torch.hostmath import bn254
+from zerokit_tpu_torch.runtime import profiling as prof
+
+torch.set_num_threads(1)
+
+# public x; witness w1, w2; constraints w1*w1 = w2, w2*w1 = x
+MATRICES = ConstraintMatrices(
+    num_instance_variables=2, num_witness_variables=2, num_constraints=2,
+    a_num_non_zero=2, b_num_non_zero=2, c_num_non_zero=2,
+    a=[[(1, 2)], [(1, 3)]], b=[[(1, 2)], [(1, 2)]], c=[[(1, 3)], [(1, 1)]],
+)
+H100 = prof.ChipSpec(sm_count=132, sm_clock_hz=1.98e9)
+
+
+def test_cost_model_equals_jax():
+    assert prof.EC_ADD_MONT_MULS == jprof.EC_ADD_MONT_MULS
+    for n, w in ((8192, 32), (6144, 32), (2048, 16), (1, 1)):
+        assert prof.msm_mont_muls(n, w) == jprof.msm_mont_muls(n, w)
+    assert prof.proof_cost_mont_muls() == jprof.proof_cost_mont_muls()
+    kw = {"n_wires": 1000, "domain": 2048, "graph_nodes": 5000}
+    assert prof.proof_cost_mont_muls(**kw) == jprof.proof_cost_mont_muls(**kw)
+    sol = prof.speed_of_light(H100)
+    assert sol["mont_muls_per_proof"] == jprof.speed_of_light()["mont_muls_per_proof"]
+    assert sol["imads_per_proof"] == sol["mont_muls_per_proof"] * prof.MONT_MUL_IMADS
+    assert sol["ceiling_proofs_per_sec"] == pytest.approx(
+        H100.imad_per_sec / sol["imads_per_proof"], rel=1e-12)
+
+
+def test_mont_mul_imads_counted_from_the_cios_loop():
+    # per outer step: 8 a*b and 8 m*p 32x32->64 products (lo and hi) + m
+    assert prof.MONT_MUL_IMADS == 8 * (8 * 2 + 1 + 8 * 2) == 264
+    src = open(os.path.join(os.path.dirname(prof.__file__), "..", "csrc", "bn254.cuh")).read()
+    body = src[src.index("__noinline__ Elem<F> mul("):src.index("return reduce_once(r);\n}")]
+    # two 32x32->64 products and one 32-bit product in the loop body
+    assert body.count("(u64)a.v[j] * b.v[i]") == 1
+    assert body.count("(u64)m * F::p(") == 2
+    assert body.count("u32 m = t[0] * F::NINV0") == 1
+
+
+def test_kernel_work_hand_computed():
+    assert prof.kernel_work("K1", lanes=131072) == (131072 * 264, 3 * 16 * 4 * 131072)
+    # G1 add: p, q and out of 16*3 words each
+    assert prof.kernel_work("K2", op="add", comps=1, lanes=1000) == (
+        1000 * 12 * 264, 1000 * 3 * 48 * 4)
+    # G2 mixed add with one sentinel lane: 39 products for each other lane
+    assert prof.kernel_work("K2", op="add_mixed", comps=2, lanes=10, skipped=1) == (
+        9 * 39 * 264, 10 * (96 + 64 + 96) * 4)
+    # the fine scan: affine in (32 words), projective out (48) per lane-step
+    assert prof.kernel_work("K3", kind="mixed", comps=1, k=32, lanes=100, skipped=32) == (
+        (32 * 100 - 32) * 11 * 264, 32 * 100 * 80 * 4)
+    assert prof.kernel_work("K4", rows=48, n=8192, m=4096) == (
+        48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
+    assert prof.kernel_work("K5", rows=48, n=8192, table=True) == (
+        48 * 16 * (9 * 256 + 512) * 264, (2 * 48 * 8192 + 512 + 8192) * 64)
+    assert prof.kernel_work("K6", lanes=1 << 17) == ((1 << 17) * 128, 3 * 64 * (1 << 17) + 3072)
+    assert prof.tensor_ops("K6", lanes=4) == 4 * 2 * 32 * 96
+    assert prof.tensor_ops("K1", lanes=4) == 0
+    with pytest.raises(ValueError):
+        prof.kernel_work("K7", lanes=1)
+
+
+def test_kernel_bound_hand_computed():
+    assert H100.derived_imad_per_sec == pytest.approx(132 * 1.98e9 * 64)
+    sec, res = prof.kernel_bound("K1", H100, lanes=131072)
+    assert res == "hbm" and sec == pytest.approx(3 * 64 * 131072 / 3.35e12)
+    sec, res = prof.kernel_bound("K3", H100, kind="mixed", comps=1, k=32, lanes=147456,
+                                 skipped=32)
+    assert res == "imad"
+    assert sec == pytest.approx((32 * 147456 - 32) * 11 * 264 / (132 * 1.98e9 * 64))
+    chip = prof.ChipSpec(sm_count=132, sm_clock_hz=1.98e9, measured_imad_per_sec=2e13)
+    sec, res = prof.kernel_bound("K6", chip, lanes=1 << 20)
+    assert chip.imad_per_sec == 2e13  # a measured rate above the derived one is the peak
+    imads, nbytes = prof.kernel_work("K6", lanes=1 << 20)
+    assert res == "hbm" and sec == pytest.approx(nbytes / 3.35e12) and imads / 2e13 < sec
+
+
+def test_busy_share_synthetic_intervals():
+    intervals = [(0, 2), (1, 3), (5, 6), (5.5, 5.7), (9, 12), (-3, -1)]
+    assert prof.busy_share(intervals, (0, 10)) == pytest.approx(0.5)
+    assert prof.busy_share([], (0, 10)) == 0.0
+    assert prof.busy_share([(0, 10), (2, 3)], (0, 10)) == 1.0
+    with pytest.raises(ValueError):
+        prof.busy_share(intervals, (4, 4))
+
+
+class _Ev:
+    def __init__(self, name, device, start, end, annotation=False):
+        self.name = name
+        self.device_type = getattr(torch.autograd.DeviceType, device)
+        self.is_user_annotation = annotation
+        self.time_range = type("TR", (), {"start": start, "end": end})()
+
+
+class _Prof:
+    def __init__(self, events):
+        self._events = events
+
+    def events(self):
+        return self._events
+
+
+def test_device_helpers_on_synthetic_events():
+    events = [
+        _Ev(prof.WINDOW, "CPU", 0, 100, annotation=True),
+        _Ev("aten::sort", "CPU", 60, 70),
+        _Ev("scan", "CUDA", 10, 30), _Ev("scan", "CUDA", 20, 40),
+        _Ev("add", "CUDA", 80, 85),
+        _Ev("msm.fine", "CUDA", 5, 45, annotation=True),  # a range on the GPU timeline
+        _Ev("msm.fine", "CPU", 1, 9, annotation=True),
+    ]
+    p = _Prof(events)
+    # device intervals 10-40 and 80-85 in the window 0-100; annotations left out
+    assert prof.device_busy_share(p) == pytest.approx(0.35)
+    assert prof.kernel_times(p) == [("scan", 40.0, 2), ("add", 5.0, 1)]
+    assert prof.range_times(p) == {"msm.fine": pytest.approx(30.0)}
+    assert prof.device_busy_share(_Prof(events[:2])) is None
+    # without trace()'s window range the window is the first to the last event
+    assert prof.device_busy_share(_Prof(events[1:5])) == pytest.approx(35 / 75)
+
+
+def test_chipspec_from_device():
+    if torch.cuda.is_available():
+        chip = prof.ChipSpec.from_device()
+        assert chip.sm_count > 0 and chip.sm_clock_hz > 0
+    else:
+        with pytest.raises(RuntimeError):
+            prof.ChipSpec.from_device()
+
+
+def _g1_points(n: int):
+    step = bn254.G1.mul(bn254.G1_GENERATOR, 987654321)
+    pts, acc = [], step
+    for _ in range(n):
+        pts.append(acc)
+        acc = bn254.G1.add(acc, step)
+    return pts
+
+
+def test_entry_points_default_to_the_card():
+    zkey = groth16_setup(MATRICES, random.Random(3))
+    rows = [[(1, 2)], [(1, 3)]]
+    entry_points = {
+        "Groth16Prover": (Groth16Prover.__init__, lambda **kw: Groth16Prover(zkey, None, **kw)),
+        "MSM": (MSM.__init__, lambda **kw: MSM(_g1_points(4), FqAdapter, **kw)),
+        "SparseMatrix": (SparseMatrix.__init__, lambda **kw: SparseMatrix(rows, 4, **kw)),
+        "WitnessMapper": (WitnessMapper.__init__, lambda **kw: WitnessMapper(MATRICES, **kw)),
+        "from_numpy_limbs": (tfield.from_numpy_limbs,
+                             lambda **kw: tfield.from_numpy_limbs(np.zeros((16, 2), np.uint32),
+                                                                  **kw)),
+    }
+    for name, (fn, make) in entry_points.items():
+        assert inspect.signature(fn).parameters["device"].default == "cuda", name
+        if torch.cuda.is_available():
+            made = make()
+            dev = made.device if hasattr(made, "device") else made.perm.device
+            assert dev.type == "cuda", name
+        else:
+            with pytest.raises(RuntimeError):
+                make()
+        made_cpu = make(device="cpu")
+        dev = made_cpu.device if hasattr(made_cpu, "device") else made_cpu.perm.device
+        assert dev.type == "cpu", name
+
+
+def test_trace_and_spans_on_a_cpu_profile(tmp_path):
+    assert not torch.autograd._profiler_enabled()
+    assert type(prof.span("msm.sort")).__name__ == "nullcontext"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            with prof.trace(str(tmp_path)):
+                pass
+    rng = random.Random(5)
+    ws = [rng.randrange(R) for _ in range(2)]
+    assignment = FrField.to_mont(encode_canonical_fast(
+        [v for row in ([1] * 2, [w * w * w % R for w in ws], ws, [w * w % R for w in ws])
+         for v in row]).reshape(16, 4, 2))
+    mapper = WitnessMapper(MATRICES, "cpu")
+    msm = MSM(_g1_points(8), FqAdapter, "cpu", n_windows=2, c_bits=4)
+    scalars = encode_canonical_fast([rng.randrange(1 << 8) for _ in range(16)]).reshape(16, 8, 2)
+    msm.tables()
+    with prof.trace(str(tmp_path), device="cpu") as p:
+        mapper.witness_map(assignment)
+        msm(scalars)
+    names = {ev.name for ev in p.events()}
+    assert {"qap.matvec", "qap.coset_lift", "msm.digits", "msm.sort", "msm.gather", "msm.fine",
+            "msm.coarse", "msm.qgather", "msm.sumq"} <= names
+    assert os.path.exists(p.trace_path) and os.path.dirname(p.trace_path) == str(tmp_path)
+    share = prof.device_busy_share(p, "cpu")
+    assert 0.0 < share <= 1.0
+    kernels = prof.kernel_times(p, "cpu")
+    assert kernels and all(us > 0 and count > 0 for _, us, count in kernels)
+    ranges = prof.range_times(p, "cpu")
+    assert set(ranges) >= {"msm.sort", "qap.matvec"} and all(us > 0 for us in ranges.values())
+
+
+def _py_step(op, x, y):
+    if op == "imad":
+        return x * y & 0xFFFFFFFF
+    if op == "imad_hi":
+        return x * y >> 32
+    if op == "add":
+        return (x + y) & 0xFFFFFFFF
+    return (x >> 7) ^ y
+
+
+@pytest.mark.parametrize("op", ["imad", "imad_hi", "add", "shift_xor"])
+def test_chain_plain_equals_python_words(op):
+    from zerokit_tpu_torch.tools import microbench as mb
+
+    a, b = mb.chain_inputs(op, 16, "cpu")
+    got = mb.chain(op, a, b, 5)  # a CPU tensor: the wrapper takes the plain version
+    assert torch.equal(got, mb.chain_plain(op, a, b, 5))
+    for i in range(16):
+        y, r = int(b[i]) & 0xFFFFFFFF, 0
+        for k in range(mb.ACC):
+            x = (int(a[i]) + k) & 0xFFFFFFFF
+            for _ in range(5):
+                x = _py_step(op, x, y)
+            r ^= x
+        assert int(got[i]) & 0xFFFFFFFF == r
+    with pytest.raises(ValueError):
+        mb.chain(op, a.to(torch.int64), b, 1)
+
+
+def test_ffma_chain_plain_is_exact_at_the_timed_length():
+    """With chain_inputs' ranges every x * y + 1 of a 256-step chain is
+    exact in float64, so the plain version rounds once, as fma.rn does."""
+    from fractions import Fraction
+
+    from zerokit_tpu_torch.tools import microbench as mb
+
+    a, b = mb.chain_inputs("ffma", 4, "cpu")
+    got = mb.chain_plain("ffma", a, b, 256)
+    for i in range(4):
+        y = float(np.int32(b[i]).view(np.float32))
+        assert 0.5 <= y < 1.0
+        r = 0
+        for k in range(mb.ACC):
+            x = float(np.int32(int(a[i]) + k).view(np.float32))
+            for _ in range(256):
+                exact = Fraction(x) * Fraction(y) + 1
+                assert Fraction(x * y + 1.0) == exact
+                x = float(np.float32(x * y + 1.0))
+                assert 1.0 <= x < 512.0
+            r ^= int(np.float32(x).view(np.uint32))
+        assert int(got[i]) & 0xFFFFFFFF == r
+
+
+def test_launch_counters_cover_every_wrapper():
+    from zerokit_tpu_torch.tools import microbench as mb
+
+    prof.reset_launches()
+    counts = prof.launch_counts()
+    assert set(counts) == {"mont_mul", "ec_op", "ec_scan_rows", "ntt_stage", "ntt_tail",
+                           "mont_mul_tc", "chain"}
+    assert all(v == 0 for v in counts.values())
+    a, b = mb.chain_inputs("add", 4, "cpu")
+    mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing
+    assert prof.launch_counts()["chain"] == 0
+
+
+def test_random_batch_inputs_are_seeded_rln_inputs():
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+
+    named, rs, ss = random_batch_inputs(np.random.default_rng(20), 3, 4)
+    again = random_batch_inputs(np.random.default_rng(20), 3, 4)
+    assert (named, rs, ss) == again
+    assert len(named["pathElements"]) == 4 and all(len(slot) == 3 for slot in named["pathElements"])
+    assert named["userMessageLimit"] == [[100] * 3] and named["messageId"] == [[1] * 3]
+    assert all(0 <= v < R for v in rs + ss)
+    assert all(v in (0, 1) for slot in named["identityPathIndex"] for v in slot)

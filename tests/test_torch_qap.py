@@ -41,7 +41,7 @@ def test_coset_lift_matches_jax():
     root = ntt.coset_root_2n(n)
     assert root == jntt.coset_root_2n(n)
     want = np.asarray(jntt.coset_lift(evals, root))
-    t = from_numpy_limbs(evals)
+    t = from_numpy_limbs(evals, "cpu")
     assert np.array_equal(to_numpy_limbs(ntt.coset_lift(t, root)), want)
     fused = nk.coset_lift_bn(t.transpose(1, 2).contiguous(), root)  # K4/K5 plain
     assert np.array_equal(to_numpy_limbs(fused.transpose(1, 2)), want)
@@ -62,7 +62,7 @@ def test_coset_lift_bn_matches_plain_lift(n, batch):
     """Every power-of-two n and any B: n <= 512 is the tail alone (K5);
     n = 2048 adds two cross stages (K4) on each side."""
     rng = np.random.default_rng(n + batch)
-    evals = from_numpy_limbs(random_mont(rng, (n, batch)))
+    evals = from_numpy_limbs(random_mont(rng, (n, batch)), "cpu")
     root = ntt.coset_root_2n(n)
     want = ntt.coset_lift(evals, root)
     nk.reset_launches()
@@ -75,7 +75,7 @@ def test_ntt_stage_and_tail_compose_to_a_dft():
     """dif (no table) then dit with inverse twiddles is n times the input."""
     n, batch = 1024, 1
     rng = np.random.default_rng(7)
-    x = from_numpy_limbs(random_mont(rng, (batch, n)))
+    x = from_numpy_limbs(random_mont(rng, (batch, n)), "cpu")
     there = nk.dif(x, False)
     back = nk.dit(there, True)
     n_mont = FR.encode([n]).reshape(16, 1, 1).expand(x.shape).contiguous()
@@ -112,7 +112,7 @@ def _compare_maps(matrices, n_wires, batch, seed):
     assignment = random_mont(rng, (n_wires, batch))
     want = np.asarray(JWitnessMapper(matrices)._witness_map_host(assignment))
     mapper = WitnessMapper(matrices, "cpu")
-    got = mapper.witness_map(from_numpy_limbs(assignment))
+    got = mapper.witness_map(from_numpy_limbs(assignment, "cpu"))
     assert got.shape == (16, mapper.domain_size, batch)
     assert np.array_equal(to_numpy_limbs(got), want)
 
@@ -126,7 +126,7 @@ def test_sparse_matvec_matches_host_sums():
     m, n_wires = _synthetic_matrices(5)
     mapper = WitnessMapper(m, "cpu")
     rng = np.random.default_rng(5)
-    assignment = from_numpy_limbs(random_mont(rng, (n_wires, 2)))
+    assignment = from_numpy_limbs(random_mont(rng, (n_wires, 2)), "cpu")
     z = FR.decode(assignment)  # (n_wires, 2) ints
     got = FR.decode(sparse_matvec(mapper.a, assignment))
     for r in range(mapper.domain_size):

@@ -13,9 +13,12 @@ never build.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +30,7 @@ CSRC_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc")
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "zerokit_tpu_torch")
 )
-SOURCES = ("bn254.cuh", "field_kernels.cu", "ntt_kernels.cu")
+SOURCES = ("bn254.cuh", "field_kernels.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,20 +46,22 @@ _SIGNATURES = {
     "zk_ec_scan": (_I, _I, _P, _P, _LL, _LL, _P),
     "zk_ntt_stage": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
     "zk_ntt_tail": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),
+    "zk_chain": (_I, _P, _P, _P, _LL, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 
 
-def _nvcc() -> str:
+def _cuda_tool(name: str) -> str:
     for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name),
+        shutil.which(name),
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this host")
+    raise RuntimeError(f"{name} not found under $CUDA_HOME/bin or on PATH")
 
 
 def source_hash() -> str:
@@ -82,7 +87,7 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, *srcs]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -123,3 +128,24 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = handle.zk_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(path: str) -> str:
+    return subprocess.run([_cuda_tool("cuobjdump"), "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_opcodes(function_substring: str) -> collections.Counter:
+    """Opcode counts (with modifiers, e.g. IMAD.WIDE.U32, IMMA.16832.U8.U8)
+    of the built library's functions whose mangled name contains the
+    substring, from cuobjdump -sass."""
+    counts: collections.Counter = collections.Counter()
+    for section in _sass(build()).split("Function : ")[1:]:
+        name, _, body = section.partition("\n")
+        if function_substring in name:
+            counts.update(_SASS_OP.findall(body))
+    return counts

@@ -42,8 +42,18 @@ def int_to_limbs(x: int, n: int = NUM_LIMBS) -> np.ndarray:
     return np.array([(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n)], dtype=np.uint32)
 
 
-def from_numpy_limbs(arr, device="cpu") -> torch.Tensor:
+def resolve_device(device) -> torch.device:
+    """The entry points' device: the card unless the caller names another.
+    Raises when a CUDA device is asked for and none is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device=\"cpu\" to run on the CPU")
+    return dev
+
+
+def from_numpy_limbs(arr, device="cuda") -> torch.Tensor:
     """uint32 limb array (the JAX package's arrays) -> int32 tensor on device."""
+    device = resolve_device(device)
     arr = np.asarray(arr)
     if arr.size and int(arr.max()) > LIMB_MASK:
         raise ValueError("limb values must lie in [0, 2^16)")

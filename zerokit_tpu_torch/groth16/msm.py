@@ -22,7 +22,7 @@ from typing import List, Optional
 import torch
 
 from ..constants import NUM_LIMBS, Q
-from ..ff.field import FQ, decode_canonical_fast
+from ..ff.field import FQ, decode_canonical_fast, resolve_device
 from ..ff.fq2 import FqAdapter
 from .curve import CurveOps
 from .msm_fused import fused_msm_pass
@@ -103,13 +103,13 @@ def _pad_lanes(x: torch.Tensor, width: int) -> torch.Tensor:
 class MSM:
     """MSM over one fixed base set. adapter = ff.fq2.FqAdapter (G1) or Fq2Adapter (G2)."""
 
-    def __init__(self, points, adapter, device="cpu", n_windows: int = N_WINDOWS,
+    def __init__(self, points, adapter, device="cuda", n_windows: int = N_WINDOWS,
                  c_bits: int = C_BITS):
         """points: list of affine points as ints (G1: (x, y); G2:
         ((x0,x1),(y0,y1))). None encodes the point at infinity."""
         self.adapter = adapter
         self.curve = CurveOps(adapter)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_windows = n_windows
         self.c_bits = c_bits
         self.lane_batch = LANE_BATCH

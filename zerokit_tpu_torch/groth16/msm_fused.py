@@ -18,7 +18,9 @@ same algorithm and stage order:
   9. the windows' sum (the tables carry the 2^(8w) factors): a halving tree.
 
 Digit 0 contributes equally to every Q_d and cancels, so zero and masked
-scalars cost nothing.
+scalars cost nothing. The stages run under torch.profiler ranges msm.digits,
+msm.sort, msm.gather, msm.fine, msm.coarse, msm.qgather and msm.sumq (the
+cut points of tools/msm_profile.py); they cost nothing without a profiler.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from ..constants import NUM_LIMBS
 from ..ff.field_kernels import ec_scan_rows
+from ..runtime.profiling import span
 from .curve import CurveOps
 
 L = NUM_LIMBS
@@ -87,7 +90,8 @@ def fused_msm_pass(
     idx_bits = max(1, (n - 1).bit_length())
     rows_in = L * comps * 2
     rows_out = L * comps * 3
-    digits = digits_for_windows(scalars, n_windows, c_bits)  # (W, n, B)
+    with span("msm.digits"):
+        digits = digits_for_windows(scalars, n_windows, c_bits)  # (W, n, B)
     iota_n = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
     g_iota = torch.arange(group, dtype=torch.int64, device=device)[:, None, None]
     b_iota = torch.arange(batch, dtype=torch.int64, device=device)[None, None, :]
@@ -95,58 +99,66 @@ def fused_msm_pass(
     window_results = []
     for g in range(n_groups):
         dg = digits[g * group : (g + 1) * group]  # (G, n, B)
-        # -- stable sort by digit via packed keys -------------------------
-        skeys, _ = torch.sort((dg << idx_bits) | iota_n, dim=1)
-        order = skeys & ((1 << idx_bits) - 1)
-        # -- gather AoS table rows in sorted order, k-major ----------------
-        base = (g * group + g_iota) * n + inst[None, None, :]
-        flat = base + order  # (G, n, B); n splits as (NB, k)
-        flat_k = flat.reshape(group, nb_blk, k, batch).permute(2, 0, 1, 3).reshape(-1)
-        rows = tables_flat[flat_k]  # (k*G*NB*B, rows_in)
-        # -- counts C(d) = #(digit <= d), d in [0, nb-2] --------------------
-        hist = torch.zeros(group * n_buckets * batch, dtype=torch.int64, device=device)
-        hist.index_add_(
-            0,
-            ((g_iota * n_buckets + dg) * batch + b_iota).reshape(-1),
-            torch.ones(dg.numel(), dtype=torch.int64, device=device),
-        )
-        counts = hist.reshape(group, n_buckets, batch).cumsum(dim=1)[:, : n_buckets - 1]
-        # -- intra-block inclusive prefixes: K3 mixed -----------------------
-        lanes = group * nb_blk * batch
-        xk = rows.reshape(k, lanes, rows_in).transpose(1, 2).contiguous()
-        fine_k = ec_scan_rows(comps, xk, "mixed")  # (k, rows_out, lanes)
-        # -- exclusive block prefixes: K3 excl over NB ----------------------
-        totals = fine_k[k - 1]  # (rows_out, G*NB*B)
-        tx = totals.reshape(rows_out, group, nb_blk, batch).permute(2, 0, 1, 3)
-        coarse_k = ec_scan_rows(comps, tx.reshape(nb_blk, rows_out, group * batch).contiguous(), "excl")
-        # -- Q_d gathers ----------------------------------------------------
-        total_col = torch.full((group, 1, batch), n, dtype=torch.int64, device=device)
-        c_all = torch.cat([counts, total_col], dim=1)  # (G, nb, B)
-        idx = (c_all - 1).clamp(min=0)  # position in [0, n)
-        fine_aos = fine_k.transpose(1, 2).reshape(-1, rows_out)  # lane order (j, g, nb, b)
-        fflat = ((((idx % k) * group + g_iota) * nb_blk + idx // k) * batch + b_iota).reshape(-1)
-        coarse_aos = coarse_k.transpose(1, 2).reshape(-1, rows_out)
-        cflat = (((idx // k) * group + g_iota) * batch + b_iota).reshape(-1)
+        with span("msm.sort"):
+            # -- stable sort by digit via packed keys ---------------------
+            skeys, _ = torch.sort((dg << idx_bits) | iota_n, dim=1)
+            order = skeys & ((1 << idx_bits) - 1)
+            base = (g * group + g_iota) * n + inst[None, None, :]
+            flat = base + order  # (G, n, B); n splits as (NB, k)
+            flat_k = flat.reshape(group, nb_blk, k, batch).permute(2, 0, 1, 3).reshape(-1)
+        with span("msm.gather"):
+            # -- gather AoS table rows in sorted order, k-major ------------
+            rows = tables_flat[flat_k]  # (k*G*NB*B, rows_in)
+        with span("msm.fine"):
+            # -- counts C(d) = #(digit <= d), d in [0, nb-2] ----------------
+            hist = torch.zeros(group * n_buckets * batch, dtype=torch.int64, device=device)
+            hist.index_add_(
+                0,
+                ((g_iota * n_buckets + dg) * batch + b_iota).reshape(-1),
+                torch.ones(dg.numel(), dtype=torch.int64, device=device),
+            )
+            counts = hist.reshape(group, n_buckets, batch).cumsum(dim=1)[:, : n_buckets - 1]
+            # -- intra-block inclusive prefixes: K3 mixed -------------------
+            lanes = group * nb_blk * batch
+            xk = rows.reshape(k, lanes, rows_in).transpose(1, 2).contiguous()
+            fine_k = ec_scan_rows(comps, xk, "mixed")  # (k, rows_out, lanes)
+        with span("msm.coarse"):
+            # -- exclusive block prefixes: K3 excl over NB ------------------
+            totals = fine_k[k - 1]  # (rows_out, G*NB*B)
+            tx = totals.reshape(rows_out, group, nb_blk, batch).permute(2, 0, 1, 3)
+            coarse_k = ec_scan_rows(
+                comps, tx.reshape(nb_blk, rows_out, group * batch).contiguous(), "excl")
+        with span("msm.qgather"):
+            # -- Q_d gathers ------------------------------------------------
+            total_col = torch.full((group, 1, batch), n, dtype=torch.int64, device=device)
+            c_all = torch.cat([counts, total_col], dim=1)  # (G, nb, B)
+            idx = (c_all - 1).clamp(min=0)  # position in [0, n)
+            fine_aos = fine_k.transpose(1, 2).reshape(-1, rows_out)  # lane order (j, g, nb, b)
+            fflat = ((((idx % k) * group + g_iota) * nb_blk + idx // k) * batch + b_iota).reshape(-1)
+            coarse_aos = coarse_k.transpose(1, 2).reshape(-1, rows_out)
+            cflat = (((idx // k) * group + g_iota) * batch + b_iota).reshape(-1)
 
-        def rows_to_soa(r):
-            """(G*nb*B, rows_out) AoS -> (16, C, 3, G, nb, B)."""
-            t = r.reshape(group, n_buckets, batch, L, comps, 3)
-            return t.permute(3, 4, 5, 0, 1, 2).contiguous()
+            def rows_to_soa(r):
+                """(G*nb*B, rows_out) AoS -> (16, C, 3, G, nb, B)."""
+                t = r.reshape(group, n_buckets, batch, L, comps, 3)
+                return t.permute(3, 4, 5, 0, 1, 2).contiguous()
 
-        q = cv.add(rows_to_soa(fine_aos[fflat]), rows_to_soa(coarse_aos[cflat]))
-        ident = cv.identity_like(q)
-        q = torch.where((c_all == 0)[None, None, None], ident, q)
-        s_total = q[:, :, :, :, n_buckets - 1].contiguous()
-        q[:, :, :, :, n_buckets - 1] = ident[:, :, :, :, n_buckets - 1]
-        # -- sum_d Q_d: halving tree ----------------------------------------
-        sum_q = tree_sum(cv, q, 4)
-        # -- telescope: (2^c - 1) * S_total - sum Q -------------------------
-        t = s_total
-        for _ in range(c_bits):
-            t = cv.double(t)
-        t = cv.add(t, cv.neg(s_total))
-        t = cv.add(t, cv.neg(sum_q))
+            q = cv.add(rows_to_soa(fine_aos[fflat]), rows_to_soa(coarse_aos[cflat]))
+            ident = cv.identity_like(q)
+            q = torch.where((c_all == 0)[None, None, None], ident, q)
+            s_total = q[:, :, :, :, n_buckets - 1].contiguous()
+            q[:, :, :, :, n_buckets - 1] = ident[:, :, :, :, n_buckets - 1]
+        with span("msm.sumq"):
+            # -- sum_d Q_d: halving tree ------------------------------------
+            sum_q = tree_sum(cv, q, 4)
+            # -- telescope: (2^c - 1) * S_total - sum Q ---------------------
+            t = s_total
+            for _ in range(c_bits):
+                t = cv.double(t)
+            t = cv.add(t, cv.neg(s_total))
+            t = cv.add(t, cv.neg(sum_q))
         window_results.append(t)  # (16, C, 3, G, B)
-    all_windows = torch.cat(window_results, dim=3)  # (16, C, 3, W, B)
-    return tree_sum(cv, all_windows, 3)
+    with span("msm.sumq"):
+        all_windows = torch.cat(window_results, dim=3)  # (16, C, 3, W, B)
+        return tree_sum(cv, all_windows, 3)
 

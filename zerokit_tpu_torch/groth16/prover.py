@@ -24,7 +24,7 @@ import torch
 from ..circuit import graph as graphmod
 from ..circuit import witness_host
 from ..constants import NUM_LIMBS, R
-from ..ff.field import FrField, encode_canonical_fast
+from ..ff.field import FrField, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
 from ..hostmath import bn254
 from ..runtime.profiling import stage_timer
@@ -45,13 +45,13 @@ def _padded_batch(b: int) -> int:
 
 
 class Groth16Prover:
-    def __init__(self, zkey, graph: graphmod.Graph, device="cpu"):
+    def __init__(self, zkey, graph: graphmod.Graph, device="cuda"):
         """zkey: a Zkey parsed by either package (the proving key carries
         over as plain ints); graph: the witness graph (None when callers
         hand in assignments)."""
         self.zkey = zkey
         self.graph = graph
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         pk = zkey.pk
         self.num_inputs = zkey.matrices.num_instance_variables
         self.n_wires = len(pk.a_query)
@@ -204,3 +204,32 @@ class Groth16Prover:
         g_c = bn254.G1.add(g_c, l_pt)
         g_c = bn254.G1.add(g_c, h_pt)
         return (g_a, g2_b, g_c)
+
+
+def random_batch_inputs(rng, batch: int, depth: int):
+    """(named inputs, r values, s values) of one batch of RLN witnesses from
+    a numpy Generator: the named inputs shaped as RLN.generate_proofs builds
+    them (name -> slots -> lanes), with seeded Fr values, userMessageLimit
+    100 and messageId 1."""
+
+    def fr():
+        return int.from_bytes(rng.bytes(32), "little") % R
+
+    lanes = []
+    for _ in range(batch):
+        lanes.append({
+            "identitySecret": [fr()],
+            "userMessageLimit": [100],
+            "messageId": [1],
+            "pathElements": [fr() for _ in range(depth)],
+            "identityPathIndex": [int(v) for v in rng.integers(0, 2, size=depth)],
+            "x": [fr()],
+            "externalNullifier": [fr()],
+        })
+    named = {
+        name: [[lane[name][slot] for lane in lanes] for slot in range(len(lanes[0][name]))]
+        for name in lanes[0]
+    }
+    rs = [fr() for _ in range(batch)]
+    ss = [fr() for _ in range(batch)]
+    return named, rs, ss

@@ -9,6 +9,8 @@ fft(distribute_powers(ifft(x), g_2N)).
 On the card the row products run through K1 (ff/field_kernels.mont_mul)
 and the three coset lifts as one batched pass through K4/K5
 (ff/ntt_kernels.coset_lift_bn); CPU tensors take the plain versions.
+witness_map runs under torch.profiler ranges qap.matvec and qap.coset_lift
+(the split of tools/qap_profile.py); they cost nothing without a profiler.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from ..circuit.zkey import ConstraintMatrices
 from ..constants import NUM_LIMBS
-from ..ff.field import FR, FrField, _carry
+from ..ff.field import FR, FrField, _carry, resolve_device
 from ..ff.ntt_kernels import coset_lift_bn
+from ..runtime.profiling import span
 from . import ntt
 
 
@@ -33,7 +36,8 @@ class SparseMatrix:
     (wire 0, coeff 0). The matvec is a gather, one batched multiply and a
     reshape-sum per bucket, then one permutation back to domain order."""
 
-    def __init__(self, rows: List[List[Tuple[int, int]]], domain_size: int, device="cpu"):
+    def __init__(self, rows: List[List[Tuple[int, int]]], domain_size: int, device="cuda"):
+        device = resolve_device(device)
         max_row_nnz = 1
         by_pad: dict = {}
         for r, row in enumerate(rows):
@@ -108,8 +112,8 @@ def sparse_matvec(matrix: SparseMatrix, assignment: torch.Tensor) -> torch.Tenso
 class WitnessMapper:
     """Witness map for one circuit's constraint matrices, on one device."""
 
-    def __init__(self, matrices: ConstraintMatrices, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, matrices: ConstraintMatrices, device="cuda"):
+        self.device = resolve_device(device)
         self.num_constraints = matrices.num_constraints
         self.num_inputs = matrices.num_instance_variables
         self.domain_size = ntt.domain_size_for(self.num_constraints + self.num_inputs)
@@ -120,17 +124,19 @@ class WitnessMapper:
     def witness_map(self, assignment: torch.Tensor) -> torch.Tensor:
         """assignment: (16, n_wires, B) Montgomery -> h: (16, domain, B)."""
         batch = assignment.shape[2]
-        a = sparse_matvec(self.a, assignment)
-        b = sparse_matvec(self.b, assignment)
-        a[:, self.num_constraints : self.num_constraints + self.num_inputs] = assignment[
-            :, : self.num_inputs
-        ]
-        # rows past num_constraints have b == 0, so c stays 0 there exactly
-        # as the reference requires (qap.rs:60-67)
-        c = FrField.mul(a, b)
-        # one batched lift for a/b/c on the kernels' (16, 3B, n) layout
-        stacked = torch.cat([a, b, c], dim=2).transpose(1, 2).contiguous()
-        lifted = coset_lift_bn(stacked, self.root_2n)
-        la, lb, lc = lifted.split(batch, dim=1)
-        h_bn = FrField.sub(FrField.mul(la, lb), lc)
-        return h_bn.transpose(1, 2).contiguous()
+        with span("qap.matvec"):
+            a = sparse_matvec(self.a, assignment)
+            b = sparse_matvec(self.b, assignment)
+            a[:, self.num_constraints : self.num_constraints + self.num_inputs] = assignment[
+                :, : self.num_inputs
+            ]
+            # rows past num_constraints have b == 0, so c stays 0 there exactly
+            # as the reference requires (qap.rs:60-67)
+            c = FrField.mul(a, b)
+        with span("qap.coset_lift"):
+            # one batched lift for a/b/c on the kernels' (16, 3B, n) layout
+            stacked = torch.cat([a, b, c], dim=2).transpose(1, 2).contiguous()
+            lifted = coset_lift_bn(stacked, self.root_2n)
+            la, lb, lc = lifted.split(batch, dim=1)
+            h_bn = FrField.sub(FrField.mul(la, lb), lc)
+            return h_bn.transpose(1, 2).contiguous()

@@ -54,6 +54,22 @@ def loaded_path() -> Optional[str]:
     return _lib_path
 
 
+def ensure_loaded(log=print) -> None:
+    """Loads the library, building it with g++ (runtime/build.py) when no
+    copy loads; raises if it still does not load. Logs which library and
+    which host paths (assembly, pairing) are in use."""
+    if not available():
+        log("native: no library loaded; building with g++")
+        from . import build
+
+        build.build()
+    if not available():
+        raise RuntimeError("native host library unavailable")
+    log(f"native: {os.path.relpath(loaded_path())} (assembly: "
+        f"{'native batched' if assemble_available() else 'python'}, pairing: "
+        f"{'native' if pairing_available() else 'python'})")
+
+
 def keccak256_native(data: bytes) -> Optional[bytes]:
     lib = _load()
     if lib is None:

@@ -1,19 +1,58 @@
-"""Per-stage wall-clock timing of the proving pipeline.
+"""Profiling and the speed-of-light arithmetic of the proving pipeline.
 
-stage_timer records the seconds a stage takes into a PipelineMetrics. A
-stage that ran on the card ends with torch.cuda.synchronize(), so its time
-includes the device work it queued, not only the enqueue.
+Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
+
+  * stage_timer / PipelineMetrics: wall-clock per pipeline stage. A stage
+    that ran on the card ends with torch.cuda.synchronize(), so its time
+    includes the device work it queued, not only the enqueue.
+  * device_ms(): the one kernel timer, device time per call of calls run
+    back to back; launch_counts() / reset_launches(): every kernel
+    wrapper's launch counter.
+  * span(): a torch.profiler range inside a stage (msm.*, qap.*); a no-op
+    when no profiler is running, and never a synchronisation.
+  * trace() / device_busy_share() / kernel_times(): a torch.profiler capture
+    with its chrome trace under build/zerokit_tpu_torch/traces/, the share of
+    the traced window in which a device kernel ran, and device time by
+    kernel name.
+  * ChipSpec / speed_of_light(): the analytic ceiling of proofs per second
+    from the Montgomery products a proof needs and the card's 32-bit
+    integer multiply rate.
+  * kernel_work() / kernel_bound(): the multiplies and bytes of one call of
+    each kernel K1-K6 and the least time the card could take for it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
+import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+# 32-bit multiply instructions of one CIOS product in csrc/bn254.cuh `mul`,
+# lo and hi halves each counted: per outer step i (8 of them) the 8 a*b
+# products (16), m = t0 * n0' (1) and the 8 m*p products (16).
+MONT_MUL_IMADS = 8 * (2 * 8 + 1 + 2 * 8)
+# complete projective add (RCB15 Alg 7): 12M + cheap b3 muls
+EC_ADD_MONT_MULS = 12
+# Montgomery products per operation of the kernels (csrc/bn254.cuh): G1's
+# b3 multiply is additions; an Fq2 product is 3 Fq products, an Fq2 square
+# 2, and G2's b3 multiply one Fq2 product.
+EC_OP_MONT_MULS = {
+    (1, "add"): 12, (1, "add_mixed"): 11, (1, "double"): 8,
+    (2, "add"): 12 * 3 + 2 * 3, (2, "add_mixed"): 11 * 3 + 2 * 3,
+    (2, "double"): 2 + 3 + (2 + 3) + 5 * 3,
+}
+WORD = 4  # bytes of one stored limb (int32 word holding 16 bits)
+LIMBS = 16
+
+REPO_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+TRACE_DIR = os.path.join(REPO_DIR, "build", "zerokit_tpu_torch", "traces")
+WINDOW = "zk.trace_window"  # the host range trace() puts around the traced block
 
 
 @dataclass
@@ -49,3 +88,355 @@ def stage_timer(metrics: Optional[PipelineMetrics], name: str, device=None):
             torch.cuda.synchronize(device)
         if metrics is not None:
             metrics.record(name, time.perf_counter() - t0)
+
+
+SPIN_CYCLES_PER_SEC = 2.0e9  # at or above the SM clock, so a spin lasts at least as asked
+
+
+def host_call(fn):
+    """(fn()'s result, the host seconds of the call) on an idle card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def device_ms(fn, reps: int = 10, enqueue_s: Optional[float] = None) -> float:
+    """Time on the card of one fn() call in ms: CUDA events around reps
+    calls run back to back, over reps. A spin kernel (torch.cuda._sleep)
+    holds the stream while the host enqueues the calls, so the host's
+    launch cost between them is not counted and a short kernel reads its
+    own duration, not its wrapper's. The spin is sized from the host
+    seconds of one call (enqueue_s, from host_call on a call the caller
+    has just made; else one untimed warm-up call measures it) and lasts
+    at most 1 s. A call of more launches than the card's launch queue
+    holds (about a thousand, as in the plain versions) still counts the
+    host's time."""
+    if enqueue_s is None:
+        enqueue_s = host_call(fn)[1]
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.25 * reps * enqueue_s + 1e-4, 1.0) * SPIN_CYCLES_PER_SEC))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _counted_modules():
+    """The modules whose kernel wrappers keep a launch counter: K1-K5 (ff),
+    K6 and the microbenchmark's chain (tools)."""
+    from ..ff import field_kernels, ntt_kernels
+    from ..tools import microbench, tc_mont_prototype
+
+    return field_kernels, ntt_kernels, tc_mont_prototype, microbench
+
+
+def launch_counts() -> Dict[str, int]:
+    """A snapshot of every kernel wrapper's launch counter."""
+    counts: Dict[str, int] = {}
+    for mod in _counted_modules():
+        counts.update(mod.launches)
+    return counts
+
+
+def reset_launches() -> None:
+    """Sets every kernel wrapper's launch counter to 0."""
+    for mod in _counted_modules():
+        mod.reset_launches()
+
+
+def span(name: str):
+    """A named range for torch.profiler; a null context when no profiler is
+    running. It never synchronises."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+# ---------------------------------------------------------------------------
+# Traces
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = TRACE_DIR, device="cuda"):
+    """Profiles the block with torch.profiler (CPU and, on the card, CUDA
+    activity) and writes a chrome trace into log_dir. Yields the profiler;
+    read it after the block. Raises without CUDA unless device="cpu"."""
+    dev = torch.device(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("trace: no CUDA device; pass device=\"cpu\" for a CPU trace")
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+        torch.cuda.synchronize(dev)
+    with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.record_function(WINDOW):
+            yield prof
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    os.makedirs(log_dir, exist_ok=True)
+    prof.trace_path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_path)
+
+
+def busy_share(intervals: Iterable[Tuple[float, float]], window: Tuple[float, float]) -> float:
+    """Length of the union of the intervals, clipped to the window, over
+    the window's length."""
+    lo, hi = window
+    if hi <= lo:
+        raise ValueError(f"empty window {window}")
+    covered = 0.0
+    end = lo
+    for s, e in sorted(intervals):
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            covered += e - s
+            end = e
+    return covered / (hi - lo)
+
+
+def device_events(prof, device="cuda") -> list:
+    """The profiled events that ran on `device`: kernels, copies and fills
+    on the card (user-annotation ranges left out); ops for device="cpu"."""
+    dtype = (torch.autograd.DeviceType.CUDA if torch.device(device).type == "cuda"
+             else torch.autograd.DeviceType.CPU)
+    return [ev for ev in prof.events()
+            if ev.device_type == dtype and not getattr(ev, "is_user_annotation", False)
+            and ev.time_range.end > ev.time_range.start]
+
+
+def device_busy_share(prof, device="cuda") -> Optional[float]:
+    """The share of the traced window in which at least one event of
+    `device` ran; None if there was none. The window is trace()'s host range
+    around the block (pure-Python work in it leaves no other event), else
+    the first to the last event."""
+    busy = [(ev.time_range.start, ev.time_range.end) for ev in device_events(prof, device)]
+    if not busy:
+        return None
+    events = prof.events()
+    marks = [ev for ev in events
+             if ev.name == WINDOW and ev.device_type == torch.autograd.DeviceType.CPU]
+    if marks:
+        window = (marks[0].time_range.start, marks[0].time_range.end)
+    else:
+        window = (min(ev.time_range.start for ev in events),
+                  max(ev.time_range.end for ev in events))
+    return busy_share(busy, window)
+
+
+def kernel_times(prof, device="cuda") -> List[Tuple[str, float, int]]:
+    """(name, microseconds, count) of the device events by name, largest
+    first; empty if the profiler saw no device event."""
+    acc: Dict[str, List[float]] = {}
+    for ev in device_events(prof, device):
+        row = acc.setdefault(ev.name, [0.0, 0])
+        row[0] += ev.time_range.end - ev.time_range.start
+        row[1] += 1
+    return sorted(((k, v[0], int(v[1])) for k, v in acc.items()), key=lambda r: -r[1])
+
+
+RANGE_PREFIXES = ("msm.", "qap.")  # the span() names of the proving stages
+
+
+def range_times(prof, device="cuda") -> Dict[str, float]:
+    """Microseconds in which a device event ran inside each span() range
+    (msm.*, qap.*), summed over its calls. The
+    ranges are the profiler's annotations on the device's own timeline (on
+    the card, the range as the GPU ran it); empty if it recorded none."""
+    dtype = (torch.autograd.DeviceType.CUDA if torch.device(device).type == "cuda"
+             else torch.autograd.DeviceType.CPU)
+    busy = [(ev.time_range.start, ev.time_range.end) for ev in device_events(prof, device)]
+    out: Dict[str, float] = {}
+    for ev in prof.events():
+        s, e = ev.time_range.start, ev.time_range.end
+        if (ev.device_type == dtype and getattr(ev, "is_user_annotation", False)
+                and ev.name.startswith(RANGE_PREFIXES) and e > s):
+            out[ev.name] = out.get(ev.name, 0.0) + busy_share(busy, (s, e)) * (e - s)
+    return dict(sorted(out.items()))
+
+
+# ---------------------------------------------------------------------------
+# The card, and the speed of light
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ChipSpec:
+    """Peak rates of one NVIDIA H100 SXM. The SM count and clock come from
+    the card (from_device); the rates per clock and the memory and tensor
+    rates from NVIDIA's documents: 64 32-bit integer multiply(-add)s per
+    clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+    throughput, compute capability 9.0), 3.35e12 B/s of HBM3 and 1.979e15
+    dense int8 tensor operations per second (H100 SXM data sheet)."""
+
+    name: str = "NVIDIA H100 80GB HBM3"
+    power_limit: str = "not read"
+    sm_count: int = 132
+    sm_clock_hz: float = 1.98e9
+    imad_per_clk_per_sm: int = 64
+    hbm_bytes_per_sec: float = 3.35e12
+    int8_tensor_ops_per_sec: float = 1.979e15
+    # a measured multiply rate above the derived one replaces it as the peak
+    measured_imad_per_sec: Optional[float] = None
+
+    @property
+    def derived_imad_per_sec(self) -> float:
+        return self.sm_count * self.sm_clock_hz * self.imad_per_clk_per_sm
+
+    @property
+    def imad_per_sec(self) -> float:
+        return max(self.derived_imad_per_sec, self.measured_imad_per_sec or 0.0)
+
+    def label(self) -> str:
+        return f"{self.name}, {self.power_limit}"
+
+    @classmethod
+    def from_device(cls, index: int = 0) -> "ChipSpec":
+        """Reads the card's name, power limit and maximum SM clock from
+        nvidia-smi and its SM count from torch. Raises without CUDA."""
+        if not torch.cuda.is_available():
+            raise RuntimeError("ChipSpec.from_device: no CUDA device")
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit,clocks.max.sm",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        name, power, clock = (s.strip() for s in out.split(","))
+        props = torch.cuda.get_device_properties(index)
+        return cls(name=name, power_limit=power, sm_count=props.multi_processor_count,
+                   sm_clock_hz=float(clock.split()[0]) * 1e6)
+
+
+def msm_mont_muls(n_points: int, n_windows: int = 32) -> int:
+    """Montgomery multiplies per proof for one G1 MSM under the up-sweep +
+    Fenwick-query formulation: per window ~n tree adds + 14*255 masked
+    prefix-query adds + 255 reduce adds + 8 doublings."""
+    per_window = n_points + 14 * 255 + 2 * 255 + 8
+    return n_windows * per_window * EC_ADD_MONT_MULS
+
+
+def proof_cost_mont_muls(
+    n_wires: int = 5844, domain: int = 8192, graph_nodes: int = 23414
+) -> dict:
+    """Analytic per-proof cost breakdown (Montgomery multiplies)."""
+    witness = graph_nodes * 2
+    ntt = 9 * domain * (domain.bit_length() - 1) // 2 + 3 * domain
+    msm_g1 = 3 * msm_mont_muls(domain)  # a, b1, l (padded to the domain size)
+    msm_h = msm_mont_muls(domain)
+    msm_g2 = 3 * msm_mont_muls(domain)  # Fq2 ~ 3x Fq muls
+    total = witness + ntt + msm_g1 + msm_h + msm_g2
+    return {
+        "witness": witness,
+        "ntt": ntt,
+        "msm_g1": msm_g1,
+        "msm_h": msm_h,
+        "msm_g2": msm_g2,
+        "total": total,
+    }
+
+
+def speed_of_light(chip: ChipSpec = ChipSpec(), **kwargs) -> dict:
+    """Ceiling proofs/sec of one card if it only did the required 32-bit
+    multiplies of the proof's Montgomery products."""
+    cost = proof_cost_mont_muls(**kwargs)
+    imads = cost["total"] * MONT_MUL_IMADS
+    return {
+        "chip": chip.label(),
+        "mont_muls_per_proof": cost["total"],
+        "imads_per_proof": imads,
+        "ceiling_proofs_per_sec": chip.imad_per_sec / imads,
+        "breakdown": cost,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Work and bound of one kernel call
+# ---------------------------------------------------------------------------
+
+
+def _point_words(comps: int, coords: int) -> int:
+    return LIMBS * comps * coords
+
+
+def kernel_work(key: str, **shape) -> Tuple[int, int]:
+    """(32-bit multiply instructions, bytes of device memory) of one call:
+    each input byte read once and each output byte written once, as stored.
+    Shapes, as chip_smoke.py's kernel checks give them:
+
+      K1 lanes                       mont_mul on (16, lanes)
+      K2 op, comps, lanes[, skipped] ec_op; skipped: add_mixed lanes whose q
+                                     is the (0, 0) sentinel (no products)
+      K3 kind, comps, k, lanes[, skipped]  ec_scan_rows on (k, rows, lanes);
+                                     skipped: sentinel lane-steps of "mixed"
+      K4 rows, n, m                  ntt_stage on (16, rows, n), twiddles (16, m)
+      K5 rows, n[, table]            ntt_tail, chunk P = min(n, 512)
+      K4+K5 rows, n                  coset_lift_bn on (16, rows, n)
+      K6 lanes                       mont_mul_tc: the 512-bit product on the
+                                     CUDA cores (the reduction's products
+                                     are tensor_ops)
+    """
+    w = WORD
+    if key == "K1":
+        n = shape["lanes"]
+        return n * MONT_MUL_IMADS, 3 * LIMBS * w * n
+    if key == "K2":
+        op, comps, n = shape["op"], shape["comps"], shape["lanes"]
+        live = n - shape.get("skipped", 0)
+        q_coords = {"add": 3, "add_mixed": 2, "double": 0}[op]
+        words = _point_words(comps, 3) * 2 + _point_words(comps, q_coords)
+        return live * EC_OP_MONT_MULS[(comps, op)] * MONT_MUL_IMADS, words * w * n
+    if key == "K3":
+        kind, comps, k, n = shape["kind"], shape["comps"], shape["k"], shape["lanes"]
+        op = "add_mixed" if kind == "mixed" else "add"
+        live = k * n - shape.get("skipped", 0)
+        words = _point_words(comps, 2 if kind == "mixed" else 3) + _point_words(comps, 3)
+        return live * EC_OP_MONT_MULS[(comps, op)] * MONT_MUL_IMADS, words * w * k * n
+    if key == "K4":
+        rows, n, m = shape["rows"], shape["n"], shape["m"]
+        return rows * n // 2 * MONT_MUL_IMADS, (2 * rows * n + m) * LIMBS * w
+    if key == "K5":
+        rows, n = shape["rows"], shape["n"]
+        table = bool(shape.get("table", False))
+        p = min(n, 512)
+        muls = rows * (n // p) * ((p.bit_length() - 1) * p // 2 + (p if table else 0))
+        words = (2 * rows * n + p + (n if table else 0)) * LIMBS
+        return muls * MONT_MUL_IMADS, words * w
+    if key == "K4+K5":  # coset_lift_bn: every DIF stage, the table, every DIT stage
+        rows, n = shape["rows"], shape["n"]
+        muls = rows * (n * (n.bit_length() - 1) + n)
+        # x in, h out; the table and each direction's twiddles (n words each)
+        return muls * MONT_MUL_IMADS, (2 * rows * n + 3 * n) * LIMBS * w
+    if key == "K6":
+        n = shape["lanes"]
+        # a*b: 64 32x32->64 products; the tables are read once
+        return n * 2 * 64, 3 * LIMBS * w * n + 32 * (32 + 64)
+    raise ValueError(f"unknown kernel {key!r}")
+
+
+def tensor_ops(key: str, **shape) -> int:
+    """Tensor-core operations (a multiply and an add each count) of one
+    call: K6's two byte-Toeplitz products, 32 bytes against 32 and 64
+    columns per lane; none for K1-K5."""
+    if key == "K6":
+        return 2 * 32 * (32 + 64) * shape["lanes"]
+    return 0
+
+
+def kernel_bound(key: str, chip: ChipSpec, **shape) -> Tuple[float, str]:
+    """(seconds, resource): the least time the card could take for one call,
+    the largest of multiplies over the IMAD peak ("imad"), bytes over the
+    HBM rate ("hbm") and tensor operations over the int8 tensor peak
+    ("tensor")."""
+    imads, nbytes = kernel_work(key, **shape)
+    times = {
+        "imad": imads / chip.imad_per_sec,
+        "hbm": nbytes / chip.hbm_bytes_per_sec,
+        "tensor": tensor_ops(key, **shape) / chip.int8_tensor_ops_per_sec,
+    }
+    resource = max(times, key=times.get)
+    return times[resource], resource
