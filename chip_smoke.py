@@ -7,7 +7,9 @@ Run from the repository root on a machine with the card:
 Phases: (1) device, (2) build of the CUDA kernels from csrc/ and load of
 the depth-20 circuit, (3) every kernel of the proving path against its
 plain PyTorch version, bit for bit, on the same tensors on the card, at the
-shapes the proving path gives it, with both timed on the card, (4) a batch
+shapes the proving path gives it (K3's fine scan through a sorted index made
+by the pass's own sort), with both timed on the card, and the sweep of the
+coarse scan's threads per lane, (4) a batch
 of 16 depth-20 RLN proofs through Groth16Prover.prove_batch with pairing
 verification and lane-0 MSMs held against the native host MSMs, (5) a
 second, warm batch, (6) the kernels' launch counts in the proving runs of
@@ -128,20 +130,124 @@ def ec_inputs(rng, comps: int, n: int):
 
 
 def main_path_shapes(prover) -> dict:
-    """The widths the proving path of one BATCH gives the curve kernels:
-    the fine and coarse scans and the bucket adds of the a/b1/l group (G1)
-    and of b2 (G2)."""
+    """The widths the proving path of one BATCH gives the curve kernels, by
+    MSM pass (the a/b1/l group and h on G1, b2 on G2): the fine scan's
+    (outer, k, inner) index, the coarse scan's (outer, k, inner) rows and
+    the bucket adds' lanes."""
     from zerokit_tpu_torch.groth16.msm import N_BUCKETS, _window_group, block_size_for
 
     shapes = {}
-    for comps, msm, members in ((1, prover.msm_a, 3), (2, prover.msm_b2, 1)):
+    for name, comps, msm, members in (("ab1l", 1, prover.msm_a, 3), ("b2", 2, prover.msm_b2, 1),
+                                      ("h", 1, prover.msm_h, 1)):
         lanes = members * BATCH
         g = _window_group(lanes, comps)
         k = block_size_for(msm.n)
         nb = msm.n // k
-        shapes[comps] = {"fine": (k, g * nb * lanes), "coarse": (nb, g * lanes),
-                         "buckets": g * N_BUCKETS * lanes}
+        shapes[name] = {"comps": comps, "n": msm.n, "n_real": msm.n_real, "members": members,
+                        "fine": (g * nb, k, lanes), "coarse": (g, nb, lanes),
+                        "buckets": g * N_BUCKETS * lanes}
     return shapes
+
+
+def fine_scan_inputs(rng, sh: dict):
+    """Table rows and the index of one window group, as a pass makes them:
+    random field elements in the rows of the MSM's real points and the
+    (0, 0) sentinel in its padding rows, and the index from the pass's own
+    sort (sorted_table_index) of seeded scalars' digits."""
+    from zerokit_tpu_torch.constants import Q, R
+    from zerokit_tpu_torch.groth16.msm import C_BITS, N_WINDOWS
+    from zerokit_tpu_torch.groth16.msm_fused import digits_for_windows, sorted_table_index
+
+    comps, n, members = sh["comps"], sh["n"], sh["members"]
+    outer, k, lanes = sh["fine"]
+    group = outer * k // n
+    n_rows = members * N_WINDOWS * n
+    table = on_card(random_elems(rng, Q, n_rows * comps * 2)
+                    .reshape(16, n_rows, comps * 2).transpose(1, 0, 2).reshape(n_rows, -1))
+    table.view(members * N_WINDOWS, n, -1)[:, sh["n_real"]:] = 0
+    scalars = on_card(random_elems(rng, R, n * lanes).reshape(16, n, lanes))
+    scalars[:, sh["n_real"]:] = 0
+    digits = digits_for_windows(scalars, N_WINDOWS, C_BITS)[:group]
+    index = sorted_table_index(digits, 0, N_WINDOWS, members).view(outer, k, lanes)
+    sentinel = (table == 0).all(dim=1)
+    work = {"skipped": int(sentinel[index.long()].sum()),
+            "table_rows": int(torch.unique(index).numel())}
+    return table, index, work
+
+
+def coarse_scan_inputs(rng, sh: dict) -> torch.Tensor:
+    """Projective rows (outer, k, inner, 16*C*3) of seeded field elements,
+    strided along k as the pass's block totals are (every other row)."""
+    from zerokit_tpu_torch.constants import Q
+
+    comps = sh["comps"]
+    outer, k, inner = sh["coarse"]
+    rows = outer * k * 2 * inner
+    x = (random_elems(rng, Q, rows * comps * 3).reshape(16, rows, comps * 3)
+         .transpose(1, 0, 2).reshape(outer, k, 2, inner, -1))
+    return on_card(x)[:, :, 1]
+
+
+SWEEP_CHUNKS = (8, 16, 32, 64, 128)
+SWEEP_FINE_THREADS = (64, 128, 256)
+
+
+def phase_scans(rng, checks: KernelChecks, shapes: dict) -> None:
+    """K3: the fine scan through a real sorted index (a/b1/l and b2) and the
+    coarse scan (a/b1/l, b2, h), bit for bit against their plain versions;
+    the fine scan's block sizes (the same arithmetic, so each equals the
+    default's output) and the coarse scan's chunk counts (each held against
+    the plain version of its own grouping), timed."""
+    from zerokit_tpu_torch.ff import field_kernels as fk
+    from zerokit_tpu_torch.runtime.profiling import device_ms
+
+    fine_sweep = []
+    for name in ("ab1l", "b2"):
+        sh = shapes[name]
+        comps = sh["comps"]
+        table, index, work = fine_scan_inputs(rng, sh)
+        outer, k, inner = sh["fine"]
+        checks.run("K3 fine", f"ec_scan_gather g{comps} ({name}), k={k}, N={outer * inner}, "
+                   f"{work['table_rows']} table rows",
+                   lambda: fk.ec_scan_gather(comps, table, index),
+                   lambda: fk.ec_scan_gather_plain(comps, table, index),
+                   {"kind": "mixed", "comps": comps, "k": k, "lanes": outer * inner, **work},
+                   reps=3)
+        ref = fk.ec_scan_gather(comps, table, index)
+        times = []
+        for threads in SWEEP_FINE_THREADS:
+            if not torch.equal(fk.ec_scan_gather(comps, table, index, threads), ref):
+                raise AssertionError(f"ec_scan_gather {name} threads={threads} differs")
+            ms = device_ms(lambda: fk.ec_scan_gather(comps, table, index, threads), 3)
+            times.append(f"{threads}: {ms:.4f}")
+        fine_sweep.append(f"    {name} g{comps} N={outer * inner}: " + ", ".join(times) + " ms")
+    log("  fine-scan block sweep (threads per block; kernel ms by device_ms over 3 calls):")
+    for line in fine_sweep:
+        log(line)
+    coarse_x = {}
+    for name in ("ab1l", "b2", "h"):
+        sh = shapes[name]
+        comps = sh["comps"]
+        x = coarse_x[name] = coarse_scan_inputs(rng, sh)
+        outer, k, inner = sh["coarse"]
+        checks.run("K3 coarse", f"ec_scan_excl g{comps} ({name}), k={k}, N={outer * inner}, "
+                   f"chunks={fk.SCAN_CHUNKS}",
+                   lambda: fk.ec_scan_excl(comps, x), lambda: fk.ec_scan_excl_plain(comps, x),
+                   {"kind": "excl", "comps": comps, "k": k, "lanes": outer * inner}, reps=10)
+    log("  coarse-scan chunk sweep (threads per lane; kernel ms by device_ms over 10 calls, "
+        "each bit-exact against the plain version of its grouping):")
+    for name, x in coarse_x.items():
+        comps = shapes[name]["comps"]
+        times = []
+        for chunks in SWEEP_CHUNKS:
+            err = max_abs_err(fk.ec_scan_excl(comps, x, chunks),
+                              fk.ec_scan_excl_plain(comps, x, chunks))
+            if err != 0:
+                raise AssertionError(f"ec_scan_excl {name} chunks={chunks} disagrees with its "
+                                     "plain version")
+            times.append(f"{chunks}: {device_ms(lambda: fk.ec_scan_excl(comps, x, chunks)):.4f}")
+        outer, k, inner = shapes[name]["coarse"]
+        log(f"    {name} g{comps} k={k} N={outer * inner}: " + ", ".join(times) + " ms")
 
 
 def phase_kernels(rng, prover) -> KernelChecks:
@@ -162,8 +268,8 @@ def phase_kernels(rng, prover) -> KernelChecks:
                    lambda: fk.mont_mul(name, a, b), lambda: fk.mont_mul_plain(name, a, b),
                    {"lanes": n1, "field": name})
     # K2 ----------------------------------------------------------------
-    for comps in (1, 2):
-        n2 = shapes[comps]["buckets"]
+    for name in ("ab1l", "b2"):
+        comps, n2 = shapes[name]["comps"], shapes[name]["buckets"]
         p_np, q_np = ec_inputs(rng, comps, n2)
         p = on_card(p_np)
         for op in ("add", "add_mixed", "double"):
@@ -180,21 +286,7 @@ def phase_kernels(rng, prover) -> KernelChecks:
                        {"op": op, "comps": comps, "lanes": n2,
                         "skipped": 1 if op == "add_mixed" else 0})
     # K3 ----------------------------------------------------------------
-    for comps in (1, 2):
-        for kind, stage in (("mixed", "fine"), ("excl", "coarse")):
-            k, n = shapes[comps][stage]
-            coords = 2 if kind == "mixed" else 3
-            rows = 16 * comps * coords
-            x_np = (random_elems(rng, Q, k * rows * n // 16)
-                    .reshape(16, k, rows // 16, n).transpose(1, 0, 2, 3).reshape(k, rows, n))
-            if kind == "mixed":  # a (0, 0) affine sentinel in lane 1 of every step
-                x_np.reshape(k, 16, comps, 2, n)[:, :, :, :, 1] = 0
-            x = on_card(x_np)
-            checks.run("K3", f"ec_scan g{comps} {kind} ({stage}), k={k}, N={n}",
-                       lambda: fk.ec_scan_rows(comps, x, kind),
-                       lambda: fk.ec_scan_rows_plain(comps, x, kind),
-                       {"kind": kind, "comps": comps, "k": k, "lanes": n,
-                        "skipped": k if kind == "mixed" else 0}, reps=3)
+    phase_scans(rng, checks, shapes)
     # K4 + K5 at the witness map's shape: a/b/c of BATCH lanes -------------
     n_dom, rows_3b = prover.mapper.domain_size, 3 * BATCH
     root = ntt_host.coset_root_2n(n_dom)
@@ -337,8 +429,10 @@ def kernel_template(key: str, shape: dict):
     if key == "K2":
         op = ("add", "add_mixed", "double").index(shape["op"])
         return f"ec_op_kernel<{elem.rsplit(',', 1)[0]}, {op}>("
-    if key == "K3":
-        return f"ec_scan_kernel<{elem}, {int(shape['kind'] == 'excl')}>("
+    if key == "K3 fine":
+        return f"ec_scan_gather_kernel<{elem}>("
+    if key == "K3 coarse":
+        return f"ec_scan_excl_kernel<{elem}>("
     if key == "K4":
         return f"ntt_stage_kernel<{int(shape['dif'])}>("
     if key == "K5":
@@ -360,10 +454,11 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
     first, ranking, seen = {}, [], set()
     warm_kernels = profile["top_all"]
     for key, what, ms, shape in checks.rows:
-        imads, nbytes = kernel_work(key, **shape)
-        sec, res = kernel_bound(key, chip, **shape)
+        kind = key.split()[0]  # "K3 fine" and "K3 coarse" are kernel_work's K3
+        imads, nbytes = kernel_work(kind, **shape)
+        sec, res = kernel_bound(kind, chip, **shape)
         first.setdefault(key, (sec * 1e3, res))
-        tops = tensor_ops(key, **shape)
+        tops = tensor_ops(kind, **shape)
         log(f"  {key} {what}: {imads} IMAD, {nbytes} B"
             + (f", {tops} tensor ops" if tops else "")
             + f"; bound {sec * 1e3:.4f} ms ({res}); kernel {ms:.4f} ms, "
@@ -385,12 +480,15 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
 KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
     "K1": ("mont_mul", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "mont_mul"),
     "K2": ("ec_op", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "ec_op"),
-    "K3": ("ec_scan", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:789", "ec_scan_rows"),
+    "K3 fine": ("ec_scan_gather", "ec_scan.cu", "zerokit_tpu/ff/pallas_field.py:789",
+                "ec_scan_gather"),
+    "K3 coarse": ("ec_scan_excl", "ec_scan.cu", "zerokit_tpu/ff/pallas_field.py:789",
+                  "ec_scan_excl"),
     "K4": ("ntt_stage", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:201", "ntt_stage"),
     "K5": ("ntt_tail", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:245", "ntt_tail"),
     "K6": ("mont_mul_tc", "mont_tc.cu", "tools/mxu_mont_prototype.py:131", "mont_mul_tc"),
 }
-PROVING_PATH = ("K1", "K2", "K3", "K4", "K5")
+PROVING_PATH = ("K1", "K2", "K3 fine", "K3 coarse", "K4", "K5")
 
 
 def main() -> int:
@@ -421,9 +519,9 @@ def main() -> int:
     info = _cuda.build_info
     log(f"[2] build: {os.path.relpath(info['path'])} "
         f"({'built' if info['built'] else 'reused'} in {info['seconds']:.1f} s)")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for kname, regs, stack, spill_st, spill_ld in _cuda.ptxas_report(info.get("log", "")):
+        log(f"  ptxas: {kname[:100]}: {regs} registers, {stack} B stack, "
+            f"{spill_st} B spill stores, {spill_ld} B spill loads")
     t0 = time.perf_counter()
     zkey, graph = load_circuit(DEPTH)
     prover = Groth16Prover(zkey, graph, device="cuda")
@@ -478,6 +576,10 @@ def main() -> int:
         f"{prof_rep['device_us'] / 1e6 / wall2:.4f} (the traced batch's "
         f"{prof_rep['device_us'] / 1e3:.3f} ms of device events over phase 5's "
         f"{wall2:.3f} s); {smi}")
+    ranges = prof_rep["ranges_us"]
+    scans = ranges.get("msm.fine", 0.0) + ranges.get("msm.coarse", 0.0)
+    log(f"  device time of the scans' ranges (msm.fine + msm.coarse) in the traced "
+        f"warm batch: {scans / 1e3:.3f} ms of {prof_rep['device_us'] / 1e3:.3f} ms; {smi}")
     warm_by_key = {key: warm_counts[KERNELS[key][3]] for key in KERNELS}
     bound = bounds(checks, chip, warm_by_key, tools["profile"])
 

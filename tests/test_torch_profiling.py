@@ -76,6 +76,15 @@ def test_kernel_work_hand_computed():
     # the fine scan: affine in (32 words), projective out (48) per lane-step
     assert prof.kernel_work("K3", kind="mixed", comps=1, k=32, lanes=100, skipped=32) == (
         (32 * 100 - 32) * 11 * 264, 32 * 100 * 80 * 4)
+    # ... through an index: the index, the 700 table rows it reaches once
+    # each, the prefixes written
+    assert prof.kernel_work("K3", kind="mixed", comps=2, k=32, lanes=100, skipped=32,
+                            table_rows=700) == (
+        (32 * 100 - 32) * 39 * 264, (32 * 100 + 700 * 64 + 32 * 100 * 96) * 4)
+    # the coarse scan: projective in and out (96 words each for G2); the
+    # multiplies of the sequential scan's k*lanes adds, whatever the chunks
+    assert prof.kernel_work("K3", kind="excl", comps=2, k=192, lanes=512) == (
+        192 * 512 * 42 * 264, 192 * 512 * 192 * 4)
     assert prof.kernel_work("K4", rows=48, n=8192, m=4096) == (
         48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
     assert prof.kernel_work("K5", rows=48, n=8192, table=True) == (
@@ -210,8 +219,9 @@ def test_trace_and_spans_on_a_cpu_profile(tmp_path):
         mapper.witness_map(assignment)
         msm(scalars)
     names = {ev.name for ev in p.events()}
-    assert {"qap.matvec", "qap.coset_lift", "msm.digits", "msm.sort", "msm.gather", "msm.fine",
-            "msm.coarse", "msm.qgather", "msm.sumq"} <= names
+    assert {"qap.matvec", "qap.coset_lift", "msm.digits", "msm.sort", "msm.fine", "msm.coarse",
+            "msm.qgather", "msm.sumq"} <= names
+    assert "msm.gather" not in names  # the fine scan reads the table rows itself
     assert os.path.exists(p.trace_path) and os.path.dirname(p.trace_path) == str(tmp_path)
     share = prof.device_busy_share(p, "cpu")
     assert 0.0 < share <= 1.0
@@ -279,8 +289,8 @@ def test_launch_counters_cover_every_wrapper():
 
     prof.reset_launches()
     counts = prof.launch_counts()
-    assert set(counts) == {"mont_mul", "ec_op", "ec_scan_rows", "ntt_stage", "ntt_tail",
-                           "mont_mul_tc", "chain"}
+    assert set(counts) == {"mont_mul", "ec_op", "ec_scan_gather", "ec_scan_excl", "ntt_stage",
+                           "ntt_tail", "mont_mul_tc", "chain"}
     assert all(v == 0 for v in counts.values())
     a, b = mb.chain_inputs("add", 4, "cpu")
     mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing

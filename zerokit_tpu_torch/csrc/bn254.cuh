@@ -1,5 +1,5 @@
 // BN254 Fr / Fq / Fq2 Montgomery arithmetic and the RCB15 group laws as
-// __device__ templates, shared by field_kernels.cu and ntt_kernels.cu.
+// __device__ templates, shared by the kernel sources of csrc/.
 //
 // Counterpart of the row-list arithmetic inside the TPU kernels
 // (zerokit_tpu/ff/pallas_field.py RowField, RowFqAdapter, RowFq2Adapter,

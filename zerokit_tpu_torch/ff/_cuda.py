@@ -2,7 +2,8 @@
 
 The kernels compile at first use, on the machine with the card, into
 build/zerokit_tpu_torch/libzk_kernels_<hash>.so, where <hash> covers the
-sources and the flags: an unchanged source tree reuses the library. The
+sources and the flags: an unchanged source tree reuses the library. Each
+source compiles in its own nvcc process, all at once. The
 library has a plain C interface; every entry point takes raw device
 pointers and the CUDA stream as void pointers, launches on that stream and
 returns cudaGetLastError(), which `launch` turns into an exception.
@@ -30,10 +31,12 @@ CSRC_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc")
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "zerokit_tpu_torch")
 )
-SOURCES = ("bn254.cuh", "field_kernels.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu")
+SOURCES = (
+    "bn254.cuh", "field_kernels.cu", "ec_scan.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,7 +46,8 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "zk_mont_mul": (_I, _P, _P, _P, _LL, _P),
     "zk_ec_op": (_I, _I, _P, _P, _P, _LL, _P),
-    "zk_ec_scan": (_I, _I, _P, _P, _LL, _LL, _P),
+    "zk_ec_scan_gather": (_I, _P, _P, _P, _I, _LL, _LL, _I, _P),
+    "zk_ec_scan_excl": (_I, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _P),
     "zk_ntt_stage": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
     "zk_ntt_tail": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),
@@ -78,27 +82,81 @@ def library_path() -> str:
 
 def build() -> str:
     """Compiles csrc/ into the build directory unless the library for this
-    source hash exists. Records the seconds and the ptxas report in
-    build_info."""
+    source hash exists: one nvcc per source, all started together, then one
+    link. Records the seconds and the ptxas report in build_info."""
     path = library_path()
     if os.path.exists(path):
         build_info.update(path=path, seconds=0.0, built=False)
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    srcs = [os.path.join(CSRC_DIR, s) for s in SOURCES if s.endswith(".cu")]
-    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, *srcs]
+    stem = f"{path[:-3]}.{os.getpid()}"
+    nvcc = _cuda_tool("nvcc")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for name in SOURCES:
+        if name.endswith(".cu"):
+            obj = f"{stem}.{name[:-3]}.o"
+            with open(obj + ".log", "w") as out:
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, name)]
+                proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+            jobs.append((name, obj, proc))
+    log, failed = "", []
+    for name, obj, proc in jobs:
+        proc.wait()
+        with open(obj + ".log") as f:
+            log += f"== {name}\n{f.read()}"
+        os.remove(obj + ".log")
+        if proc.returncode != 0:
+            failed.append(name)
+    objs = [obj for _, obj, _ in jobs]
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-o", f"{stem}.tmp", *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
     with open(path[:-3] + "_nvcc.log", "w") as f:
         f.write(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-8000:]}")
-    os.replace(tmp, path)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log[-8000:]}")
+    os.replace(f"{stem}.tmp", path)
     build_info.update(path=path, seconds=seconds, built=True, log=log)
     return path
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PROPS = re.compile(r"Function properties for (\S+)")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> list:
+    """(kernel, registers, stack bytes, spill-store bytes, spill-load bytes)
+    of each kernel entry in an nvcc -Xptxas -v log, kernel names demangled
+    where c++filt exists."""
+    entries: dict = {}
+    entry = props = None
+    for line in log.splitlines():
+        if m := _ENTRY.search(line):
+            entry = m.group(1)
+            entries[entry] = [0, 0, 0, 0]
+        elif m := _PROPS.search(line):
+            props = m.group(1)
+        elif (m := _STACK.search(line)) and props == entry and entry is not None:
+            entries[entry][1:] = [int(g) for g in m.groups()]
+        elif (m := _REGS.search(line)) and entry is not None:
+            entries[entry][0] = int(m.group(1))
+    names = list(entries)
+    filt = shutil.which("c++filt")
+    if filt and names:
+        out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            entries = dict(zip(out.stdout.splitlines(), entries.values()))
+    return [(name, *vals) for name, vals in entries.items()]
 
 
 def lib() -> ctypes.CDLL:

@@ -7,11 +7,15 @@ Counterpart of zerokit_tpu/ff/pallas_field.py; same signatures and layouts:
   * ec_op (K2, `ec_op<Curve,Op>`): RCB15 complete add (Alg 7), mixed add
     with the (0, 0) affine-infinity select (Alg 8) and doubling (Alg 9), on
     points (16, C, coords, *batch), C = 1 (G1) or 2 (G2).
-  * ec_scan_rows (K3, `ec_scan<Curve,Kind>`): prefix sums over the leading
-    k axis of (k, 16*C*coords, N) limb-major rows (row (i*C + m)*coords + c
-    holds 16-bit limb i of component m of coordinate c). "mixed": inclusive
-    prefixes of affine rows from the identity; "excl": exclusive prefixes of
-    projective rows.
+  * K3, the EC prefix scans (csrc/ec_scan.cu) on AoS point rows (16*C*coords
+    words, word order (limb, comp, coord)): ec_scan_gather (`ec_scan_gather
+    <Curve>`, the MSM's fine scan) reads affine table rows through a row
+    index and writes inclusive prefixes from the identity; ec_scan_excl
+    (`ec_scan_excl<Curve>`, the coarse scan) writes exclusive prefixes of
+    projective rows, SCAN_CHUNKS threads per lane. ec_scan_rows is the JAX
+    package's interface over both: prefix sums over the leading k axis of
+    (k, 16*C*coords, N) limb-major rows, "mixed" (affine, inclusive) or
+    "excl" (projective, exclusive).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 `*_plain` version beside each wrapper. The plain versions run on any device
@@ -32,11 +36,15 @@ from .field import SPECS, mont_mul_sos
 from .fq2 import Fq2PlainAdapter, FqPlainAdapter
 
 L = NUM_LIMBS
-launches = {"mont_mul": 0, "ec_op": 0, "ec_scan_rows": 0}
+launches = {"mont_mul": 0, "ec_op": 0, "ec_scan_gather": 0, "ec_scan_excl": 0}
+# threads per lane of the coarse scan (K3 "excl") and threads per block of
+# the fine scan (K3 "mixed"), from the sweeps in PERF.md
+SCAN_CHUNKS = 64
+MAX_SCAN_CHUNKS = 256
+FINE_THREADS = 128
 
 _FIELD_IDS = {"fr": 0, "fq": 1}
 _OP_IDS = {"add": 0, "add_mixed": 1, "double": 2}
-_KIND_IDS = {"mixed": 0, "excl": 1}
 
 
 def reset_launches() -> None:
@@ -258,40 +266,179 @@ def _scan_rows(components: int, kind: str):
     return in_rows, L * components * 3
 
 
+def ec_scan_gather(components: int, table_rows: torch.Tensor, index: torch.Tensor,
+                   threads: int = FINE_THREADS) -> torch.Tensor:
+    """Fine scan (K3 "mixed") through a row index: per lane (o, b) the
+    inclusive prefix sums over j of the affine rows table_rows[index[o, j, b]].
+
+    table_rows: (R, 16*C*2) int32 AoS rows, word order (limb, comp, coord),
+    (0, 0) = infinity; index: (outer, k, inner) int32 in [0, R). Returns (outer, k,
+    inner, 16*C*3) projective AoS rows, from the identity, in the order of
+    the sequential scan (ec_scan_rows_plain "mixed"). threads: per block
+    of the kernel, 32-256 (one thread per lane)."""
+    in_rows, out_rows = _scan_rows(components, "mixed")
+    if table_rows.ndim != 2 or table_rows.shape[1] != in_rows:
+        raise ValueError(f"ec_scan_gather: table_rows must be (R, {in_rows}), "
+                         f"got {tuple(table_rows.shape)}")
+    if index.ndim != 3:
+        raise ValueError(f"ec_scan_gather: index must be (outer, k, inner), "
+                         f"got {tuple(index.shape)}")
+    if index.numel():
+        # the kernel reads table rows at these values unchecked; the check
+        # raises at once on the CPU and as a device-side assert on the card,
+        # so it never waits for the card
+        lo, hi = torch.aminmax(index)
+        torch._assert_async((lo >= 0) & (hi < table_rows.shape[0]),
+                            f"ec_scan_gather: index values must lie in [0, {table_rows.shape[0]})")
+    if not on_cuda(table_rows, index):
+        return ec_scan_gather_plain(components, table_rows, index)
+    check_limbs(table_rows, "table_rows")
+    check_limbs(index, "index")
+    if table_rows.data_ptr() % 16:
+        raise ValueError("ec_scan_gather: table_rows must be 16-byte aligned")
+    outer, k, inner = index.shape
+    out = torch.empty(tuple(index.shape) + (out_rows,), dtype=torch.int32, device=index.device)
+    if index.numel():
+        _cuda.launch("zk_ec_scan_gather", components - 1, table_rows, index, out, k, inner,
+                     outer * inner, threads)
+        launches["ec_scan_gather"] += 1
+    return out
+
+
+def ec_scan_gather_plain(components: int, table_rows: torch.Tensor,
+                         index: torch.Tensor) -> torch.Tensor:
+    """Plain version of ec_scan_gather: a gather, then ec_scan_rows_plain."""
+    in_rows, out_rows = _scan_rows(components, "mixed")
+    outer, k, inner = index.shape
+    rows = table_rows[index.long()].permute(1, 3, 0, 2).reshape(k, in_rows, outer * inner)
+    out = ec_scan_rows_plain(components, rows, "mixed")
+    return out.reshape(k, out_rows, outer, inner).permute(2, 0, 3, 1).contiguous()
+
+
+def ec_scan_excl(components: int, x: torch.Tensor, chunks: int = SCAN_CHUNKS) -> torch.Tensor:
+    """Coarse scan (K3 "excl"): per lane (o, b) the exclusive prefix sums
+    over j of the projective rows x[o, j, b], split into `chunks` chunks per
+    lane (the grouping of csrc/ec_scan.cu, followed by ec_scan_rows_plain).
+
+    x: (outer, k, inner, 16*C*3) int32 AoS rows; each row and the inner
+    axis contiguous, outer and k strided by whole rows (the MSM pass scans
+    the last fine prefix of every block in place). Returns dense (outer, k,
+    inner, 16*C*3) rows; step 0 holds the identity."""
+    _, rows = _scan_rows(components, "excl")
+    if x.ndim != 4 or x.shape[3] != rows:
+        raise ValueError(f"ec_scan_excl: x must be (outer, k, inner, {rows}), got {tuple(x.shape)}")
+    if not 1 <= chunks <= MAX_SCAN_CHUNKS:
+        raise ValueError(f"ec_scan_excl: chunks must lie in [1, {MAX_SCAN_CHUNKS}], got {chunks}")
+    if not on_cuda(x):
+        return ec_scan_excl_plain(components, x, chunks)
+    if x.dtype != torch.int32:
+        raise TypeError(f"x: expected int32 limbs, got {x.dtype}")
+    outer, k, inner, _ = x.shape
+    if (x.stride(3) != 1 or x.stride(2) != rows or x.stride(1) % rows or x.stride(0) % rows
+            or x.data_ptr() % 16):
+        raise ValueError(f"ec_scan_excl: rows must be contiguous and 16-byte aligned along "
+                         f"inner and whole rows apart along outer and k, got strides {x.stride()}")
+    out = torch.empty((outer, k, inner, rows), dtype=torch.int32, device=x.device)
+    if x.numel():
+        _cuda.launch("zk_ec_scan_excl", components - 1, x, out, k, chunks, inner, outer * inner,
+                     x.stride(0) // rows, x.stride(1) // rows)
+        launches["ec_scan_excl"] += 1
+    return out
+
+
+def ec_scan_excl_plain(components: int, x: torch.Tensor, chunks: int = SCAN_CHUNKS) -> torch.Tensor:
+    """Plain version of ec_scan_excl."""
+    outer, k, inner, rows = x.shape
+    x_rows = x.permute(1, 3, 0, 2).reshape(k, rows, outer * inner)
+    out = ec_scan_rows_plain(components, x_rows, "excl", chunks)
+    return out.reshape(k, rows, outer, inner).permute(2, 0, 3, 1).contiguous()
+
+
 def ec_scan_rows(components: int, x_rows: torch.Tensor, kind: str) -> torch.Tensor:
     """EC prefix scan over the leading k axis of x_rows (k, in_rows, N)
     limb-major rows: in_rows = 16*C*2 for kind "mixed" (affine inputs,
     inclusive prefixes) and 16*C*3 for "excl" (projective inputs, exclusive
-    prefixes). Returns (k, 16*C*3, N) projective prefix points."""
-    if kind not in _KIND_IDS:
+    prefixes, SCAN_CHUNKS chunks per lane). Returns (k, 16*C*3, N)
+    projective prefix points. On the card it runs ec_scan_gather (an
+    identity index over the rows) or ec_scan_excl."""
+    if kind not in ("mixed", "excl"):
         raise ValueError(f"unknown scan kind {kind!r}")
-    in_rows, out_rows = _scan_rows(components, kind)
+    in_rows, _ = _scan_rows(components, kind)
     if x_rows.ndim != 3 or x_rows.shape[1] != in_rows:
         raise ValueError(f"ec_scan_rows: expected (k, {in_rows}, N), got {tuple(x_rows.shape)}")
     if not on_cuda(x_rows):
         return ec_scan_rows_plain(components, x_rows, kind)
-    check_limbs(x_rows, "x_rows")
     k, _, n = x_rows.shape
-    out = torch.empty((k, out_rows, n), dtype=torch.int32, device=x_rows.device)
-    if k and n:
-        _cuda.launch("zk_ec_scan", components - 1, _KIND_IDS[kind], x_rows, out, k, n)
-        launches["ec_scan_rows"] += 1
-    return out
+    aos = x_rows.permute(0, 2, 1).contiguous()  # (k, N, in_rows)
+    if kind == "mixed":
+        index = torch.arange(k * n, dtype=torch.int32, device=x_rows.device).reshape(1, k, n)
+        out = ec_scan_gather(components, aos.reshape(k * n, in_rows), index)
+    else:
+        out = ec_scan_excl(components, aos[None])
+    return out[0].permute(0, 2, 1).contiguous()
 
 
-def ec_scan_rows_plain(components: int, x_rows: torch.Tensor, kind: str) -> torch.Tensor:
-    """Plain version of ec_scan_rows: a loop of group-law steps."""
+def ec_scan_rows_plain(components: int, x_rows: torch.Tensor, kind: str,
+                       chunks: int = SCAN_CHUNKS) -> torch.Tensor:
+    """Plain version of ec_scan_rows: "mixed" is a loop of mixed adds over
+    k; "excl" follows csrc/ec_scan.cu's grouping into `chunks` chunks."""
     fq = plain_adapter(components)
     k, _, n = x_rows.shape
-    coords = 2 if kind == "mixed" else 3
+    if kind == "excl":
+        return _scan_excl_chunked(fq, components, x_rows, chunks)
     out = torch.empty((k, L * components * 3, n), dtype=torch.int32, device=x_rows.device)
     carry = identity_points(components, n, x_rows.device)
     for j in range(k):
-        x = x_rows[j].reshape(L, components, coords, n)
-        if kind == "mixed":
-            carry = rcb_add_mixed(fq, carry, x)
-            out[j] = carry.reshape(-1, n)
-        else:
-            out[j] = carry.reshape(-1, n)
-            carry = rcb_add(fq, carry, x)
+        carry = rcb_add_mixed(fq, carry, x_rows[j].reshape(L, components, 2, n))
+        out[j] = carry.reshape(-1, n)
+    return out
+
+
+def _scan_excl_chunked(fq, components: int, x_rows: torch.Tensor, chunks: int) -> torch.Tensor:
+    """Exclusive prefixes of (k, 16*C*3, N) projective rows, grouped as the
+    kernel groups them (csrc/ec_scan.cu): chunk t holds steps
+    [t*k//chunks, (t+1)*k//chunks); (1) its sum from its first row, (2) a
+    Kogge-Stone scan over the chunk sums, s_t = add(s_{t-d}, s_t), (3) a
+    walk of each chunk from the sum of the chunks before it. Each step runs
+    on all chunks at once."""
+    k, rows, n = x_rows.shape
+    dev = x_rows.device
+    pts = x_rows.reshape(k, L, components, 3, n)
+    lo = [t * k // chunks for t in range(chunks)]
+    length = [(t + 1) * k // chunks - lo[t] for t in range(chunks)]
+
+    def flat(p):  # (L, C, 3, T', N) -> (L, C, 3, T'*N)
+        return p.reshape(L, components, 3, -1)
+
+    def rows_at(ts, step):  # x rows of chunks ts at their step, (L, C, 3, T', N)
+        return pts[torch.tensor([lo[t] + step for t in ts], device=dev)].permute(1, 2, 3, 0, 4)
+
+    def chunks_with(step):
+        return [t for t in range(chunks) if step < length[t]]
+
+    # 1. chunk sums; an empty chunk holds the identity
+    s = identity_points(components, chunks * n, dev).reshape(L, components, 3, chunks, n)
+    for step in range(max(length)):
+        ts = chunks_with(step)
+        x = rows_at(ts, step)
+        if step:
+            x = rcb_add(fq, flat(s[:, :, :, ts]), flat(x)).reshape(x.shape)
+        s[:, :, :, ts] = x
+    # 2. Kogge-Stone inclusive scan over the chunk axis
+    d = 1
+    while d < chunks:
+        summed = rcb_add(fq, flat(s[:, :, :, : chunks - d]), flat(s[:, :, :, d:]))
+        s = torch.cat([s[:, :, :, :d], summed.reshape(L, components, 3, chunks - d, n)], dim=3)
+        d *= 2
+    # 3. walk each chunk from its offset
+    acc = torch.cat([identity_points(components, n, dev)[:, :, :, None], s[:, :, :, :-1]], dim=3)
+    out = torch.empty((k, rows, n), dtype=torch.int32, device=dev)
+    for step in range(max(length)):
+        ts = chunks_with(step)
+        idx = torch.tensor([lo[t] + step for t in ts], device=dev)
+        out[idx] = acc[:, :, :, ts].permute(3, 0, 1, 2, 4).reshape(len(ts), rows, n)
+        more = [t for t in ts if step + 1 < length[t]]
+        if more:
+            summed = rcb_add(fq, flat(acc[:, :, :, more]), flat(rows_at(more, step)))
+            acc[:, :, :, more] = summed.reshape(L, components, 3, len(more), n)
     return out

@@ -30,8 +30,10 @@ from .msm_fused import fused_msm_pass
 C_BITS = 8
 N_BUCKETS = 1 << C_BITS
 N_WINDOWS = 32  # 256 bits / 8
-# Window-group size bound: a pass keeps the fine-prefix array of
-# 192 * C * G * n * B bytes resident, so C*G*B is capped.
+# Window-group size bound: a pass keeps the int32 table-row index
+# (4 * G * n * B bytes) and the fine prefix rows (192 * C * G * n * B bytes)
+# resident; the fine scan reads the table rows through the index, so no
+# gathered copy of them exists. C*G*B is capped.
 MAX_CGB = 1024
 K_BLOCK = 32  # intra-block scan length
 PAD_GRANULARITY = 2048

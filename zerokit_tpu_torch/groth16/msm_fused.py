@@ -5,22 +5,23 @@ same algorithm and stage order:
 
   1. digits of the 8-bit windows;
   2. per window and lane, a stable sort by digit via packed int64 keys
-     (digit << idx_bits) | index;
-  3. a gather of the affine table rows in sorted order, k-major so the
-     fine scan reads them as (k, rows, lanes);
-  4. the histogram of digits and its cumsum: C(d) = #(digit <= d);
-  5. the fine scan (K3 "mixed"): inclusive prefixes inside blocks of
-     k = 32 sorted points;
-  6. the coarse scan (K3 "excl"): exclusive prefixes of the block totals;
-  7. the Q_d gathers: Q_d = fine[C(d)-1] + coarse[(C(d)-1) div k] (K2 add);
-  8. the telescope 255*S_total - sum_{d<255} Q_d, with sum_d Q_d as a
+     (digit << idx_bits) | index, giving the int32 table-row index of
+     the points in sorted order (sorted_table_index);
+  3. the histogram of digits and its cumsum: C(d) = #(digit <= d);
+  4. the fine scan (K3 "mixed", ec_scan_gather): inclusive prefixes inside
+     blocks of k = 32 sorted points, read from the table rows through the
+     index, written as rows in sorted order;
+  5. the coarse scan (K3 "excl", ec_scan_excl): exclusive prefixes of the
+     block totals, the fine prefixes at the end of each block, read in place;
+  6. the Q_d gathers: Q_d = fine[C(d)-1] + coarse[(C(d)-1) div k] (K2 add);
+  7. the telescope 255*S_total - sum_{d<255} Q_d, with sum_d Q_d as a
      halving tree of K2 adds and 255*S as 256*S - S (8 K2 doublings);
-  9. the windows' sum (the tables carry the 2^(8w) factors): a halving tree.
+  8. the windows' sum (the tables carry the 2^(8w) factors): a halving tree.
 
 Digit 0 contributes equally to every Q_d and cancels, so zero and masked
 scalars cost nothing. The stages run under torch.profiler ranges msm.digits,
-msm.sort, msm.gather, msm.fine, msm.coarse, msm.qgather and msm.sumq (the
-cut points of tools/msm_profile.py); they cost nothing without a profiler.
+msm.sort, msm.fine, msm.coarse, msm.qgather and msm.sumq (the cut points of
+tools/msm_profile.py); they cost nothing without a profiler.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import NUM_LIMBS
-from ..ff.field_kernels import ec_scan_rows
+from ..ff.field_kernels import ec_scan_excl, ec_scan_gather
 from ..runtime.profiling import span
 from .curve import CurveOps
 
@@ -63,6 +64,22 @@ def tree_sum(cv: CurveOps, xs: torch.Tensor, axis: int) -> torch.Tensor:
     return xs.squeeze(axis)
 
 
+def sorted_table_index(dg: torch.Tensor, first_window: int, n_windows: int,
+                       n_instances: int = 1) -> torch.Tensor:
+    """Digits (G, n, B) of windows first_window.. -> int32 (G, n, B): per
+    window and lane, the table rows of the n points in stable digit order.
+    Rows of instance m, window w start at (m*W + w)*n (tables of the
+    instances stacked, lanes instance-major)."""
+    group, n, batch = dg.shape
+    device = dg.device
+    idx_bits = max(1, (n - 1).bit_length())
+    iota_n = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
+    skeys, _ = torch.sort((dg << idx_bits) | iota_n, dim=1)
+    inst = (torch.arange(batch, device=device) // (batch // n_instances)) * (n_windows * n)
+    window = torch.arange(first_window, first_window + group, device=device)[:, None, None]
+    return (window * n + inst[None, None, :] + (skeys & ((1 << idx_bits) - 1))).to(torch.int32)
+
+
 def fused_msm_pass(
     cv: CurveOps,
     tables_flat: torch.Tensor,
@@ -87,28 +104,16 @@ def fused_msm_pass(
         raise ValueError(f"group {group} / block {k} do not divide {n_windows} / {n}")
     n_groups = n_windows // group
     nb_blk = n // k
-    idx_bits = max(1, (n - 1).bit_length())
-    rows_in = L * comps * 2
     rows_out = L * comps * 3
     with span("msm.digits"):
         digits = digits_for_windows(scalars, n_windows, c_bits)  # (W, n, B)
-    iota_n = torch.arange(n, dtype=torch.int64, device=device)[None, :, None]
     g_iota = torch.arange(group, dtype=torch.int64, device=device)[:, None, None]
     b_iota = torch.arange(batch, dtype=torch.int64, device=device)[None, None, :]
-    inst = (torch.arange(batch, device=device) // (batch // n_instances)) * (n_windows * n)
     window_results = []
     for g in range(n_groups):
         dg = digits[g * group : (g + 1) * group]  # (G, n, B)
         with span("msm.sort"):
-            # -- stable sort by digit via packed keys ---------------------
-            skeys, _ = torch.sort((dg << idx_bits) | iota_n, dim=1)
-            order = skeys & ((1 << idx_bits) - 1)
-            base = (g * group + g_iota) * n + inst[None, None, :]
-            flat = base + order  # (G, n, B); n splits as (NB, k)
-            flat_k = flat.reshape(group, nb_blk, k, batch).permute(2, 0, 1, 3).reshape(-1)
-        with span("msm.gather"):
-            # -- gather AoS table rows in sorted order, k-major ------------
-            rows = tables_flat[flat_k]  # (k*G*NB*B, rows_in)
+            index = sorted_table_index(dg, g * group, n_windows, n_instances)
         with span("msm.fine"):
             # -- counts C(d) = #(digit <= d), d in [0, nb-2] ----------------
             hist = torch.zeros(group * n_buckets * batch, dtype=torch.int64, device=device)
@@ -118,32 +123,27 @@ def fused_msm_pass(
                 torch.ones(dg.numel(), dtype=torch.int64, device=device),
             )
             counts = hist.reshape(group, n_buckets, batch).cumsum(dim=1)[:, : n_buckets - 1]
-            # -- intra-block inclusive prefixes: K3 mixed -------------------
-            lanes = group * nb_blk * batch
-            xk = rows.reshape(k, lanes, rows_in).transpose(1, 2).contiguous()
-            fine_k = ec_scan_rows(comps, xk, "mixed")  # (k, rows_out, lanes)
+            # -- intra-block inclusive prefixes: K3 mixed, lanes (g, blk, b) -
+            fine = ec_scan_gather(comps, tables_flat, index.view(group * nb_blk, k, batch))
         with span("msm.coarse"):
-            # -- exclusive block prefixes: K3 excl over NB ------------------
-            totals = fine_k[k - 1]  # (rows_out, G*NB*B)
-            tx = totals.reshape(rows_out, group, nb_blk, batch).permute(2, 0, 1, 3)
-            coarse_k = ec_scan_rows(
-                comps, tx.reshape(nb_blk, rows_out, group * batch).contiguous(), "excl")
+            # -- exclusive block prefixes: K3 excl over the blocks' totals --
+            totals = fine.view(group, nb_blk, k, batch, rows_out)[:, :, k - 1]
+            coarse = ec_scan_excl(comps, totals)  # (G, NB, B, rows_out)
         with span("msm.qgather"):
             # -- Q_d gathers ------------------------------------------------
             total_col = torch.full((group, 1, batch), n, dtype=torch.int64, device=device)
             c_all = torch.cat([counts, total_col], dim=1)  # (G, nb, B)
             idx = (c_all - 1).clamp(min=0)  # position in [0, n)
-            fine_aos = fine_k.transpose(1, 2).reshape(-1, rows_out)  # lane order (j, g, nb, b)
-            fflat = ((((idx % k) * group + g_iota) * nb_blk + idx // k) * batch + b_iota).reshape(-1)
-            coarse_aos = coarse_k.transpose(1, 2).reshape(-1, rows_out)
-            cflat = (((idx // k) * group + g_iota) * batch + b_iota).reshape(-1)
+            fflat = ((g_iota * n + idx) * batch + b_iota).reshape(-1)
+            cflat = ((g_iota * nb_blk + idx // k) * batch + b_iota).reshape(-1)
 
             def rows_to_soa(r):
                 """(G*nb*B, rows_out) AoS -> (16, C, 3, G, nb, B)."""
                 t = r.reshape(group, n_buckets, batch, L, comps, 3)
                 return t.permute(3, 4, 5, 0, 1, 2).contiguous()
 
-            q = cv.add(rows_to_soa(fine_aos[fflat]), rows_to_soa(coarse_aos[cflat]))
+            q = cv.add(rows_to_soa(fine.view(-1, rows_out)[fflat]),
+                       rows_to_soa(coarse.view(-1, rows_out)[cflat]))
             ident = cv.identity_like(q)
             q = torch.where((c_all == 0)[None, None, None], ident, q)
             s_total = q[:, :, :, :, n_buckets - 1].contiguous()
@@ -161,4 +161,3 @@ def fused_msm_pass(
     with span("msm.sumq"):
         all_windows = torch.cat(window_results, dim=3)  # (16, C, 3, W, B)
         return tree_sum(cv, all_windows, 3)
-

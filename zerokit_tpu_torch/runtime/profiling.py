@@ -371,8 +371,16 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
       K1 lanes                       mont_mul on (16, lanes)
       K2 op, comps, lanes[, skipped] ec_op; skipped: add_mixed lanes whose q
                                      is the (0, 0) sentinel (no products)
-      K3 kind, comps, k, lanes[, skipped]  ec_scan_rows on (k, rows, lanes);
-                                     skipped: sentinel lane-steps of "mixed"
+      K3 kind, comps, k, lanes[, skipped, table_rows]  a scan of k steps over
+                                     lanes: "mixed" (ec_scan_gather; with
+                                     table_rows, the distinct table rows its
+                                     index reaches, it also reads the int32
+                                     index and those rows once each) or
+                                     "excl" (ec_scan_excl); skipped: sentinel
+                                     lane-steps of "mixed". The multiplies are
+                                     the sequential scan's k*lanes adds for
+                                     both kinds (the chunked coarse scan's
+                                     extra adds are its design's cost).
       K4 rows, n, m                  ntt_stage on (16, rows, n), twiddles (16, m)
       K5 rows, n[, table]            ntt_tail, chunk P = min(n, 512)
       K4+K5 rows, n                  coset_lift_bn on (16, rows, n)
@@ -394,8 +402,13 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
         kind, comps, k, n = shape["kind"], shape["comps"], shape["k"], shape["lanes"]
         op = "add_mixed" if kind == "mixed" else "add"
         live = k * n - shape.get("skipped", 0)
+        imads = live * EC_OP_MONT_MULS[(comps, op)] * MONT_MUL_IMADS
+        if "table_rows" in shape:  # index, each reached table row, the prefixes
+            words = (k * n * (1 + _point_words(comps, 3))
+                     + shape["table_rows"] * _point_words(comps, 2))
+            return imads, words * w
         words = _point_words(comps, 2 if kind == "mixed" else 3) + _point_words(comps, 3)
-        return live * EC_OP_MONT_MULS[(comps, op)] * MONT_MUL_IMADS, words * w * k * n
+        return imads, words * w * k * n
     if key == "K4":
         rows, n, m = shape["rows"], shape["n"], shape["m"]
         return rows * n // 2 * MONT_MUL_IMADS, (2 * rows * n + m) * LIMBS * w
