@@ -4,12 +4,16 @@ Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py
 
-Phases: (1) device, (2) build of the CUDA kernels from csrc/ and load of
-the depth-20 circuit, (3) every kernel of the proving path against its
-plain PyTorch version, bit for bit, on the same tensors on the card, at the
-shapes the proving path gives it (K3's fine scan through a sorted index made
-by the pass's own sort), with both timed on the card, and the sweep of the
-coarse scan's threads per lane, (4) a batch
+Phases: (1) device, (2) build of the CUDA kernels from csrc/ (ptxas
+registers, stack and spills of every kernel; SASS opcode counts of K2's G1
+and G2 add) and load of the depth-20 circuit, (3) every kernel of the
+proving path against its plain PyTorch version, bit for bit, on the same
+tensors on the card, at the shapes the proving path gives it (K3's fine
+scan through a sorted index made by the pass's own sort, K2's bucket add
+through the rows the pass's own counts give), with both timed on the card;
+the inputs hold edge values of the lazy field core (sums of exactly p,
+(p-1)^2, values just above p - 2^32); the sweeps of K2's block size, the
+fine scan's block size and the coarse scan's threads per lane, (4) a batch
 of 16 depth-20 RLN proofs through Groth16Prover.prove_batch with pairing
 verification and lane-0 MSMs held against the native host MSMs, (5) a
 second, warm batch, (6) the kernels' launch counts in the proving runs of
@@ -19,7 +23,8 @@ its launch counts: the microbenchmark, whose chains are checked against
 their plain version at the shape they are timed at, and the profile of a
 warm batch (device busy share, top kernels), (9) each kernel's work, bound
 and share of the bound. Times are CUDA-event times of calls run back
-to back (profiling.device_ms).
+to back (profiling.device_ms); the byte-bound K1 and K4 are timed on
+rotating copies of their tensors that together exceed L2 (l2_cold).
 Any failed check raises, so the script exits non-zero. It imports no JAX.
 The line before the last is the kernel JSON, the last line the device JSON.
 """
@@ -27,6 +32,8 @@ The line before the last is the kernel JSON, the last line the device JSON.
 from __future__ import annotations
 
 import argparse
+import collections
+import itertools
 import json
 import os
 import subprocess
@@ -55,13 +62,58 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def edge_values(p: int) -> list:
+    """Values < p that reach the lazy field core's edges (csrc/bn254.cuh):
+    0, 1, p-1 ((p-1)^2 where two meet), a pair summing to exactly p, values
+    just above p - 2^32 (every word but the lowest is p's), p - 2."""
+    x = p // 3
+    return [0, 1, p - 1, x, p - x, p - (1 << 32) + 1, p - (1 << 32) + 0x7FFFFFFF, p - 2]
+
+
+def limbs_of(v: int) -> list:
+    return [(v >> (16 * i)) & 0xFFFF for i in range(16)]
+
+
 def random_elems(rng, p: int, n: int) -> np.ndarray:
-    """(16, n) limbs of seeded values < p, with 0, 1 and p-1 in lanes 0-2."""
+    """(16, n) limbs of seeded values < p, with edge_values(p) in the first
+    lanes."""
     limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
     limbs[15] %= (p >> 240) & 0xFFFF
-    for j, v in enumerate((0, 1, p - 1)):
-        limbs[:, j] = [(v >> (16 * i)) & 0xFFFF for i in range(16)]
+    for j, v in enumerate(edge_values(p)[:n]):
+        limbs[:, j] = limbs_of(v)
     return limbs
+
+
+def put_edges(rows: np.ndarray, comps: int, coords: int, p: int) -> None:
+    """Writes edge points into the first AoS rows (16*C*coords words, word
+    (limb*C + m)*coords + c) of `rows`, every component alike: all
+    coordinates p-1; x + y = p and y + z = p; all just above p - 2^32."""
+    x = p // 3
+    hi = p - (1 << 32)
+    points = [[p - 1] * coords, [x, p - x, x][:coords], [hi + 1, hi + 5, hi + 9][:coords]]
+    for r, point in enumerate(points[: rows.shape[0]]):
+        for c, v in enumerate(point):
+            for m in range(comps):
+                rows[r, [(i * comps + m) * coords + c for i in range(16)]] = limbs_of(v)
+
+
+def sass_summary(ops) -> str:
+    """Opcode counts grouped: every IMAD variant, IADD3 (with .X), local
+    loads and stores (spills), the six most common others, the total."""
+    if not ops:
+        return "no function matched"
+    groups = {"IMAD*": ("IMAD",), "IADD3*": ("IADD3",), "LDL/STL": ("LDL", "STL")}
+    parts, rest = [], dict(ops)
+    for label, prefixes in groups.items():
+        hit = {op: c for op, c in ops.items() if op.startswith(prefixes)}
+        for op in hit:
+            rest.pop(op)
+        detail = ", ".join(f"{op} {c}" for op, c in sorted(hit.items(), key=lambda t: -t[1]))
+        parts.append(f"{label} {sum(hit.values())}" + (f" ({detail})" if detail else ""))
+    top = sorted(rest.items(), key=lambda t: -t[1])[:6]
+    parts.append("others " + ", ".join(f"{op} {c}" for op, c in top)
+                 + f" ({sum(rest.values())} in all)")
+    return f"{sum(ops.values())} instructions: " + "; ".join(parts)
 
 
 def on_card(arr: np.ndarray) -> torch.Tensor:
@@ -73,17 +125,42 @@ def on_card(arr: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+L2_ROTATION_BYTES = 400 << 20  # 8x the H100's 50 MB L2
+
+
+def l2_cold(call, *inputs):
+    """A call of call(*inputs) on rotating copies of the inputs, as many as
+    hold L2_ROTATION_BYTES together, with the last outputs kept alive so
+    that they rotate too: each call reads and writes addresses that the
+    calls just before it have pushed out of L2, so a byte-bound kernel
+    reads its time against HBM, not against L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, -(-L2_ROTATION_BYTES // nbytes))
+    copies = [[t.clone() for t in inputs] for _ in range(n)]
+    held = collections.deque(maxlen=n)
+    step = itertools.count()
+
+    def cold():
+        held.append(call(*copies[next(step) % n]))
+        return held[-1]
+
+    return cold
+
+
 class KernelChecks:
     """Runs kernel and plain version on the same card tensors, requires
     equal integers, and keeps each check's error, device times
-    (profiling.device_ms) and the shape that profiling.kernel_work reads."""
+    (profiling.device_ms) and the shape that profiling.kernel_work reads.
+    With `cold` (l2_cold of the kernel), the kernel's time is that of the
+    L2-cold calls; the same tensors back to back are printed beside it."""
 
     def __init__(self):
         self.errors: dict = {}
         self.times: dict = {}
         self.rows: list = []  # (key, what, ms, shape)
 
-    def run(self, key: str, what: str, kernel, plain, shape, reps: int = 10) -> None:
+    def run(self, key: str, what: str, kernel, plain, shape, reps: int = 10,
+            cold=None) -> None:
         from zerokit_tpu_torch.runtime.profiling import device_ms, host_call
 
         got, kernel_s = host_call(kernel)  # also the kernel's warm-up
@@ -93,20 +170,43 @@ class KernelChecks:
         log(f"  {key} {what}: max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"{key} {what}: kernel disagrees with its plain version")
-        self.record(key, what, err, device_ms(kernel, reps, kernel_s),
-                    device_ms(plain, 1, plain_s), shape)
+        ms = device_ms(kernel, reps, kernel_s)
+        if cold is not None:
+            log(f"    kernel on the same tensors back to back (L2-warm): {ms:.4f} ms")
+            ms = device_ms(cold, reps)
+        self.record(key, what, err, ms, device_ms(plain, 1, plain_s), shape,
+                    "L2-cold, rotating copies" if cold is not None else "calls back to back")
 
-    def record(self, key: str, what: str, err: int, ms: float, plain_ms: float, shape) -> None:
+    def record(self, key: str, what: str, err: int, ms: float, plain_ms: float, shape,
+               how: str = "calls back to back") -> None:
         self.errors.setdefault(key, []).append(err)
         self.times.setdefault(key, (ms, plain_ms, what, shape))
         self.rows.append((key, what, ms, shape))
-        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (on the card, calls back to back)")
+        log(f"    kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (on the card, {how})")
+
+
+def block_sweep(what: str, call, reps: int = 10) -> str:
+    """call(threads) at each of SWEEP_THREADS threads per block (the
+    kernels' defaults among them), every output equal to the first, timed
+    by device_ms; the line that reports it."""
+    from zerokit_tpu_torch.runtime.profiling import device_ms
+
+    ref = call(SWEEP_THREADS[0])
+    times = []
+    for threads in SWEEP_THREADS:
+        if not torch.equal(call(threads), ref):
+            raise AssertionError(f"{what} threads={threads} differs from "
+                                 f"threads={SWEEP_THREADS[0]}")
+        times.append(f"{threads}: {device_ms(lambda: call(threads), reps):.4f}")
+    return f"    {what}: " + ", ".join(times) + " ms"
 
 
 def ec_inputs(rng, comps: int, n: int):
     """p, q (16, C, 3, n) of seeded field elements (the formulas are
     polynomials, so any values compare), with curve points in lanes 0-3:
-    (identity, P), (P, P), (P, -P), (P, identity)."""
+    (identity, P), (P, P), (P, -P), (P, identity); lanes 4-7 hold x
+    coordinates from edge_values (products of two equal edge values), lanes
+    8-10 put_edges points in p and q."""
     from zerokit_tpu_torch.constants import Q
     from zerokit_tpu_torch.ff.fq2 import Fq2Adapter, FqAdapter
     from zerokit_tpu_torch.hostmath import bn254
@@ -126,6 +226,10 @@ def ec_inputs(rng, comps: int, n: int):
     for j, (a, b) in enumerate([(None, pt), (pt, pt), (pt, grp.neg(pt)), (pt, None)]):
         p[:, :, :, j] = proj(a)
         q[:, :, :, j] = proj(b)
+    for arr in (p, q):
+        rows = arr[:, :, :, 8:11].transpose(3, 0, 1, 2).reshape(3, -1).copy()
+        put_edges(rows, comps, 3, Q)
+        arr[:, :, :, 8:11] = rows.reshape(3, 16, comps, 3).transpose(1, 2, 3, 0)
     return p, q
 
 
@@ -150,10 +254,11 @@ def main_path_shapes(prover) -> dict:
 
 
 def fine_scan_inputs(rng, sh: dict):
-    """Table rows and the index of one window group, as a pass makes them:
-    random field elements in the rows of the MSM's real points and the
-    (0, 0) sentinel in its padding rows, and the index from the pass's own
-    sort (sorted_table_index) of seeded scalars' digits."""
+    """Table rows, the index and the digits of one window group, as a pass
+    makes them: random field elements (put_edges points in the first rows)
+    in the rows of the MSM's real points and the (0, 0) sentinel in its
+    padding rows, and the index from the pass's own sort
+    (sorted_table_index) of seeded scalars' digits."""
     from zerokit_tpu_torch.constants import Q, R
     from zerokit_tpu_torch.groth16.msm import C_BITS, N_WINDOWS
     from zerokit_tpu_torch.groth16.msm_fused import digits_for_windows, sorted_table_index
@@ -162,8 +267,10 @@ def fine_scan_inputs(rng, sh: dict):
     outer, k, lanes = sh["fine"]
     group = outer * k // n
     n_rows = members * N_WINDOWS * n
-    table = on_card(random_elems(rng, Q, n_rows * comps * 2)
-                    .reshape(16, n_rows, comps * 2).transpose(1, 0, 2).reshape(n_rows, -1))
+    rows = (random_elems(rng, Q, n_rows * comps * 2)
+            .reshape(16, n_rows, comps * 2).transpose(1, 0, 2).reshape(n_rows, -1))
+    put_edges(rows, comps, 2, Q)
+    table = on_card(rows)
     table.view(members * N_WINDOWS, n, -1)[:, sh["n_real"]:] = 0
     scalars = on_card(random_elems(rng, R, n * lanes).reshape(16, n, lanes))
     scalars[:, sh["n_real"]:] = 0
@@ -172,7 +279,7 @@ def fine_scan_inputs(rng, sh: dict):
     sentinel = (table == 0).all(dim=1)
     work = {"skipped": int(sentinel[index.long()].sum()),
             "table_rows": int(torch.unique(index).numel())}
-    return table, index, work
+    return table, index, digits, work
 
 
 def coarse_scan_inputs(rng, sh: dict) -> torch.Tensor:
@@ -183,29 +290,32 @@ def coarse_scan_inputs(rng, sh: dict) -> torch.Tensor:
     comps = sh["comps"]
     outer, k, inner = sh["coarse"]
     rows = outer * k * 2 * inner
-    x = (random_elems(rng, Q, rows * comps * 3).reshape(16, rows, comps * 3)
-         .transpose(1, 0, 2).reshape(outer, k, 2, inner, -1))
+    x = random_elems(rng, Q, rows * comps * 3).reshape(16, rows, comps * 3).transpose(1, 0, 2)
+    x = x.reshape(outer, k, 2, inner, -1).copy()
+    put_edges(x[0, :, 1, 0], comps, 3, Q)  # lane 0's first steps
     return on_card(x)[:, :, 1]
 
 
 SWEEP_CHUNKS = (8, 16, 32, 64, 128)
-SWEEP_FINE_THREADS = (64, 128, 256)
+SWEEP_THREADS = (64, 128, 256)  # threads per block of K2 and of the fine scan
 
 
-def phase_scans(rng, checks: KernelChecks, shapes: dict) -> None:
+def phase_scans(rng, checks: KernelChecks, shapes: dict) -> dict:
     """K3: the fine scan through a real sorted index (a/b1/l and b2) and the
     coarse scan (a/b1/l, b2, h), bit for bit against their plain versions;
     the fine scan's block sizes (the same arithmetic, so each equals the
     default's output) and the coarse scan's chunk counts (each held against
-    the plain version of its own grouping), timed."""
+    the plain version of its own grouping), timed. Returns each fine scan's
+    (table, index, digits) by pass."""
     from zerokit_tpu_torch.ff import field_kernels as fk
     from zerokit_tpu_torch.runtime.profiling import device_ms
 
-    fine_sweep = []
+    fine_sweep, passes = [], {}
     for name in ("ab1l", "b2"):
         sh = shapes[name]
         comps = sh["comps"]
-        table, index, work = fine_scan_inputs(rng, sh)
+        table, index, digits, work = fine_scan_inputs(rng, sh)
+        passes[name] = (table, index, digits)
         outer, k, inner = sh["fine"]
         checks.run("K3 fine", f"ec_scan_gather g{comps} ({name}), k={k}, N={outer * inner}, "
                    f"{work['table_rows']} table rows",
@@ -213,14 +323,9 @@ def phase_scans(rng, checks: KernelChecks, shapes: dict) -> None:
                    lambda: fk.ec_scan_gather_plain(comps, table, index),
                    {"kind": "mixed", "comps": comps, "k": k, "lanes": outer * inner, **work},
                    reps=3)
-        ref = fk.ec_scan_gather(comps, table, index)
-        times = []
-        for threads in SWEEP_FINE_THREADS:
-            if not torch.equal(fk.ec_scan_gather(comps, table, index, threads), ref):
-                raise AssertionError(f"ec_scan_gather {name} threads={threads} differs")
-            ms = device_ms(lambda: fk.ec_scan_gather(comps, table, index, threads), 3)
-            times.append(f"{threads}: {ms:.4f}")
-        fine_sweep.append(f"    {name} g{comps} N={outer * inner}: " + ", ".join(times) + " ms")
+        fine_sweep.append(block_sweep(
+            f"ec_scan_gather {name} g{comps} N={outer * inner}",
+            lambda threads: fk.ec_scan_gather(comps, table, index, threads), reps=3))
     log("  fine-scan block sweep (threads per block; kernel ms by device_ms over 3 calls):")
     for line in fine_sweep:
         log(line)
@@ -248,6 +353,62 @@ def phase_scans(rng, checks: KernelChecks, shapes: dict) -> None:
             times.append(f"{chunks}: {device_ms(lambda: fk.ec_scan_excl(comps, x, chunks)):.4f}")
         outer, k, inner = shapes[name]["coarse"]
         log(f"    {name} g{comps} k={k} N={outer * inner}: " + ", ".join(times) + " ms")
+    return passes
+
+
+def phase_ec_sweep(rng, shapes: dict) -> None:
+    """K2's block size: each op at the bucket adds' widths with 64, 128 and
+    256 threads per block, each output equal to the default's, timed
+    (ec_add_gather's sweep is in phase_bucket_adds)."""
+    from zerokit_tpu_torch.ff import field_kernels as fk
+
+    log("  K2 block sweep (threads per block; kernel ms by device_ms over 10 calls):")
+    for name in ("ab1l", "b2"):
+        comps, n2 = shapes[name]["comps"], shapes[name]["buckets"]
+        p_np, q_np = ec_inputs(rng, comps, n2)
+        p, q3, q2 = on_card(p_np), on_card(q_np), on_card(q_np[:, :, :2])
+        for op, q in (("add", q3), ("add_mixed", q2), ("double", None)):
+            log(block_sweep(f"ec_op g{comps} {op}, {n2} lanes",
+                            lambda threads: fk.ec_op(op, comps, p, q, threads)))
+
+
+def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict) -> None:
+    """K2's Q_d add (ec_add_gather) at the bucket adds' widths, on the fine
+    and coarse prefixes of phase_scans' fine-scan inputs, through the rows
+    that the pass's own counts give (msm_fused.bucket_counts, bucket_rows);
+    every 7th bucket is flagged empty besides the pass's own empty ones."""
+    from zerokit_tpu_torch.ff import field_kernels as fk
+    from zerokit_tpu_torch.groth16.msm import N_BUCKETS
+    from zerokit_tpu_torch.groth16.msm_fused import bucket_counts, bucket_rows
+
+    for name in ("ab1l", "b2"):
+        sh = shapes[name]
+        comps, n = sh["comps"], sh["n"]
+        outer, k, lanes = sh["fine"]
+        table, index, digits = passes[name]
+        group = digits.shape[0]
+        fine = fk.ec_scan_gather(comps, table, index)
+        rows = fine.shape[-1]
+        coarse = fk.ec_scan_excl(comps, fine.view(group, n // k, k, lanes, rows)[:, :, k - 1])
+        fidx, cidx, empty = bucket_rows(bucket_counts(digits, N_BUCKETS), n, k)
+        empty = empty | (torch.arange(empty.numel(), device=empty.device) % 7 == 3).view(
+            empty.shape)
+        fine_rows, coarse_rows = fine.view(-1, rows), coarse.view(-1, rows)
+        live = ~empty
+        work = {"op": "add_gather", "comps": comps, "lanes": empty.numel(),
+                "skipped": int(empty.sum()),
+                "rows_read": int(torch.unique(fidx[live]).numel()
+                                 + torch.unique(cidx[live]).numel())}
+        checks.run("K2 gather", f"ec_add_gather g{comps} ({name}), {empty.numel()} lanes, "
+                   f"{work['skipped']} empty",
+                   lambda: fk.ec_add_gather(comps, fine_rows, fidx, coarse_rows, cidx, empty),
+                   lambda: fk.ec_add_gather_plain(comps, fine_rows, fidx, coarse_rows, cidx,
+                                                  empty),
+                   work)
+        log("  K2 gather block sweep (threads per block; kernel ms by device_ms over 10 calls):")
+        log(block_sweep(f"ec_add_gather g{comps} ({name}), {empty.numel()} lanes",
+                        lambda threads: fk.ec_add_gather(comps, fine_rows, fidx, coarse_rows,
+                                                         cidx, empty, threads)))
 
 
 def phase_kernels(rng, prover) -> KernelChecks:
@@ -259,14 +420,15 @@ def phase_kernels(rng, prover) -> KernelChecks:
     checks = KernelChecks()
     shapes = main_path_shapes(prover)
     log(f"  main-path widths: {shapes}")
-    # K1 ----------------------------------------------------------------
+    # K1 (the edge values meet themselves: (p-1)^2 in lane 2) -------------
     n1 = 1 << 17
     for name, p in (("fr", R), ("fq", Q)):
         a = on_card(random_elems(rng, p, n1))
-        b = on_card(random_elems(rng, p, n1)[:, ::-1])
+        b = on_card(random_elems(rng, p, n1))
         checks.run("K1", f"mont_mul {name}, {n1} lanes",
                    lambda: fk.mont_mul(name, a, b), lambda: fk.mont_mul_plain(name, a, b),
-                   {"lanes": n1, "field": name})
+                   {"lanes": n1, "field": name},
+                   cold=l2_cold(lambda a, b: fk.mont_mul(name, a, b), a, b))
     # K2 ----------------------------------------------------------------
     for name in ("ab1l", "b2"):
         comps, n2 = shapes[name]["comps"], shapes[name]["buckets"]
@@ -285,8 +447,11 @@ def phase_kernels(rng, prover) -> KernelChecks:
                        lambda: fk.ec_op(op, comps, p, q), lambda: fk.ec_op_plain(op, comps, p, q),
                        {"op": op, "comps": comps, "lanes": n2,
                         "skipped": 1 if op == "add_mixed" else 0})
-    # K3 ----------------------------------------------------------------
-    phase_scans(rng, checks, shapes)
+    phase_ec_sweep(rng, shapes)
+    # K3, then K2's Q_d add on the scans' outputs ----------------------------
+    passes = phase_scans(rng, checks, shapes)
+    phase_bucket_adds(checks, shapes, passes)
+    del passes
     # K4 + K5 at the witness map's shape: a/b/c of BATCH lanes -------------
     n_dom, rows_3b = prover.mapper.domain_size, 3 * BATCH
     root = ntt_host.coset_root_2n(n_dom)
@@ -298,7 +463,8 @@ def phase_kernels(rng, prover) -> KernelChecks:
             checks.run("K4", f"ntt_stage {direction} m={m}, (16, {rows_3b}, {n_dom})",
                        lambda: nk.ntt_stage(x, tw, m, direction),
                        lambda: nk.ntt_stage_plain(x, tw, m, direction),
-                       {"rows": rows_3b, "n": n_dom, "m": m, "dif": direction == "dif"})
+                       {"rows": rows_3b, "n": n_dom, "m": m, "dif": direction == "dif"},
+                       cold=l2_cold(lambda x: nk.ntt_stage(x, tw, m, direction), x))
             m //= 2
         tail_tw = nk._tail_tw(n_dom, inverse, "cuda")
         for table in (nk._coset_table(n_dom, root, "cuda"), None):
@@ -426,6 +592,8 @@ def kernel_template(key: str, shape: dict):
     elem = "zk::Elem<zk::FqTag>, 1" if shape.get("comps") == 1 else "zk::Fq2E, 2"
     if key == "K1":
         return f"mont_mul_kernel<zk::{'FrTag' if shape['field'] == 'fr' else 'FqTag'}>("
+    if key == "K2 gather":
+        return f"ec_add_gather_kernel<{elem}>("
     if key == "K2":
         op = ("add", "add_mixed", "double").index(shape["op"])
         return f"ec_op_kernel<{elem.rsplit(',', 1)[0]}, {op}>("
@@ -480,6 +648,8 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
 KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
     "K1": ("mont_mul", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "mont_mul"),
     "K2": ("ec_op", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571", "ec_op"),
+    "K2 gather": ("ec_add_gather", "field_kernels.cu", "zerokit_tpu/ff/pallas_field.py:571",
+                  "ec_add_gather"),
     "K3 fine": ("ec_scan_gather", "ec_scan.cu", "zerokit_tpu/ff/pallas_field.py:789",
                 "ec_scan_gather"),
     "K3 coarse": ("ec_scan_excl", "ec_scan.cu", "zerokit_tpu/ff/pallas_field.py:789",
@@ -488,7 +658,7 @@ KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
     "K5": ("ntt_tail", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:245", "ntt_tail"),
     "K6": ("mont_mul_tc", "mont_tc.cu", "tools/mxu_mont_prototype.py:131", "mont_mul_tc"),
 }
-PROVING_PATH = ("K1", "K2", "K3 fine", "K3 coarse", "K4", "K5")
+PROVING_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5")
 
 
 def main() -> int:
@@ -522,6 +692,9 @@ def main() -> int:
     for kname, regs, stack, spill_st, spill_ld in _cuda.ptxas_report(info.get("log", "")):
         log(f"  ptxas: {kname[:100]}: {regs} registers, {stack} B stack, "
             f"{spill_st} B spill stores, {spill_ld} B spill loads")
+    for curve, elem in (("G1", "FqTag"), ("G2", "Fq2E")):
+        log(f"  SASS of ec_op_kernel {curve} add (cuobjdump -sass): "
+            f"{sass_summary(_cuda.sass_opcodes('ec_op_kernel', elem, 'Li0E'))}")
     t0 = time.perf_counter()
     zkey, graph = load_circuit(DEPTH)
     prover = Groth16Prover(zkey, graph, device="cuda")
@@ -580,6 +753,11 @@ def main() -> int:
     scans = ranges.get("msm.fine", 0.0) + ranges.get("msm.coarse", 0.0)
     log(f"  device time of the scans' ranges (msm.fine + msm.coarse) in the traced "
         f"warm batch: {scans / 1e3:.3f} ms of {prof_rep['device_us'] / 1e3:.3f} ms; {smi}")
+    ours = ("ec_scan_gather_kernel", "ec_add_gather_kernel")
+    gathers = [(kname[:70], round(us / 1e3, 3), c) for kname, us, c in prof_rep["top_all"]
+               if "gather" in kname and not any(o in kname for o in ours)]
+    log(f"  torch gather kernels in the traced warm batch (name, ms, launches): "
+        f"{gathers or 'none'}")
     warm_by_key = {key: warm_counts[KERNELS[key][3]] for key in KERNELS}
     bound = bounds(checks, chip, warm_by_key, tools["profile"])
 

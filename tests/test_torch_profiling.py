@@ -58,11 +58,23 @@ def test_mont_mul_imads_counted_from_the_cios_loop():
     # per outer step: 8 a*b and 8 m*p 32x32->64 products (lo and hi) + m
     assert prof.MONT_MUL_IMADS == 8 * (8 * 2 + 1 + 8 * 2) == 264
     src = open(os.path.join(os.path.dirname(prof.__file__), "..", "csrc", "bn254.cuh")).read()
-    body = src[src.index("__noinline__ Elem<F> mul("):src.index("return reduce_once(r);\n}")]
-    # two 32x32->64 products and one 32-bit product in the loop body
-    assert body.count("(u64)a.v[j] * b.v[i]") == 1
-    assert body.count("(u64)m * F::p(") == 2
-    assert body.count("u32 m = t[0] * F::NINV0") == 1
+
+    def body(name):
+        return src[src.index(f"void {name}("):src.index("\n}\n", src.index(f"void {name}("))]
+
+    # a row i >= 1: the 8 products a_j * b_i, lo and hi halves, on PTX chains
+    row = body("mad_row")
+    assert row.count("mad.lo.cc.u32") + row.count("madc.lo.cc.u32") == 8
+    assert row.count("madc.hi.cc.u32") + row.count("madc.hi.u32") == 8
+    # its reduction: m = t0 * n0' and the 8 products m * p_j
+    redc = body("redc_row")
+    assert redc.count("mul.lo.u32 m,") == 1
+    assert redc.count("mad.lo.cc.u32") + redc.count("madc.lo.cc.u32") == 8
+    assert redc.count("madc.hi.cc.u32") + redc.count("madc.hi.u32") == 8
+    # row 0's products a_j * b_0 in C, then 7 rows and 8 reductions
+    mul = src[src.index("Elem<F> mul(const Elem<F>& a"):src.index("merge_row(ev, od);")]
+    assert mul.count("* b.v[0]") == 2 and mul.count("__umulhi(") == 2  # in a 4-step loop
+    assert mul.count("redc_row(") == 3 and mul.count("mad_row(") == 2  # in a 7-row loop
 
 
 def test_kernel_work_hand_computed():
@@ -73,6 +85,10 @@ def test_kernel_work_hand_computed():
     # G2 mixed add with one sentinel lane: 39 products for each other lane
     assert prof.kernel_work("K2", op="add_mixed", comps=2, lanes=10, skipped=1) == (
         9 * 39 * 264, 10 * (96 + 64 + 96) * 4)
+    # the Q_d add through indices: 2 empty lanes of 10; two int32 indices and
+    # a flag byte a lane, 7 distinct rows read, 10 points written
+    assert prof.kernel_work("K2", op="add_gather", comps=2, lanes=10, skipped=2,
+                            rows_read=7) == (8 * 42 * 264, (7 + 10) * 96 * 4 + 10 * 9)
     # the fine scan: affine in (32 words), projective out (48) per lane-step
     assert prof.kernel_work("K3", kind="mixed", comps=1, k=32, lanes=100, skipped=32) == (
         (32 * 100 - 32) * 11 * 264, 32 * 100 * 80 * 4)
@@ -289,8 +305,8 @@ def test_launch_counters_cover_every_wrapper():
 
     prof.reset_launches()
     counts = prof.launch_counts()
-    assert set(counts) == {"mont_mul", "ec_op", "ec_scan_gather", "ec_scan_excl", "ntt_stage",
-                           "ntt_tail", "mont_mul_tc", "chain"}
+    assert set(counts) == {"mont_mul", "ec_op", "ec_add_gather", "ec_scan_gather",
+                           "ec_scan_excl", "ntt_stage", "ntt_tail", "mont_mul_tc", "chain"}
     assert all(v == 0 for v in counts.values())
     a, b = mb.chain_inputs("add", 4, "cpu")
     mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing

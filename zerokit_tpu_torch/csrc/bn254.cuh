@@ -8,10 +8,36 @@
 // package layout of 16-bit limbs in int32 words, and load8/store8 repack.
 // Montgomery radix R = 2^256 in both forms, so the integers are the same.
 //
-// Every operation returns the canonical representative (< p): the multiply
-// is CIOS Montgomery with 32x32->64 products and one final conditional
-// subtraction; Fq2 multiplies are Karatsuba with three reductions. Results
-// are therefore bit-identical to the plain PyTorch versions.
+// The register-resident core (Hopper):
+//   * Carry chains are PTX: the CIOS product's rows are mad.lo.cc /
+//     madc.hi.cc chains, add and sub are add.cc/addc and sub.cc/subc
+//     chains. The carry flag does not survive from one asm statement to
+//     the next, so every chain starts and ends inside one asm statement.
+//   * The product splits each row's partial products by limb parity, as
+//     the open GPU provers do: even limbs' 64-bit products land on word
+//     pairs (j, j+1) of one accumulator, odd limbs' on the other, shifted
+//     by a word, so each lo/hi pair of a 32x32 product is one 64-bit
+//     multiply-add with carry (IMAD.WIDE) and a row is two chains.
+//   * `mul` is __forceinline__, and the G1, Fr and K1 kernels inline every
+//     product: ptxas reports no stack frame for them. The Fq products
+//     inside Fq2 products go through one out-of-line function with its
+//     operands by value (fq2_part_mul), which ptxas also gives no stack
+//     frame. Inlined, nvcc 12.8 builds the G2 kernels, but a G2 add becomes
+//     ~11K straight-line instructions (~180 KB of code) at 255 registers,
+//     and it ran 1.7x slower than out of line on the H100 (PERF.md).
+//   * Lazy reduction. Values in registers lie in [0, 2p), not [0, p): with
+//     a, b < 2p and 4p < 2^256 (true for Fr and Fq) the CIOS loop ends
+//     below 2p, so the product has no final subtraction; add brings a sum
+//     below 4p back below 2p, sub adds 2p on a borrow. Field operations
+//     are homomorphic mod p, so a value made canonical is the integer the
+//     plain version gives.
+//
+// INVARIANTS. (1) Every value loaded from device memory is canonical
+// (< p): the tensors hold canonical limbs. (2) A value is made canonical
+// exactly once, before it leaves the thread: store8 (and so store_elem,
+// store_proj, store_point) and put_point. (3) is_zero reads canonical
+// values only, i.e. loaded inputs (the affine sentinel of rcb_add_mixed);
+// a computed value may be p where the plain version holds 0.
 
 #pragma once
 
@@ -25,8 +51,12 @@ typedef long long i64;
 
 static __constant__ u32 kFrP[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
                                    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+static __constant__ u32 kFrP2[8] = {0xe0000002u, 0x87c3eb27u, 0xf372e122u, 0x5067d090u,
+                                    0x0302b0bau, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
 static __constant__ u32 kFqP[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                                    0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
+static __constant__ u32 kFqP2[8] = {0xb0f9fa8eu, 0x7841182du, 0xd0e3951au, 0x2f02d522u,
+                                    0x0302b0bbu, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
 // R mod q: one in Montgomery form
 static __constant__ u32 kFqOne[8] = {0xc58f0d9du, 0xd35d438du, 0xf5c70b3du, 0x0a78eb28u,
                                      0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
@@ -40,10 +70,12 @@ static __constant__ u32 kB3G2[2][8] = {
 struct FrTag {
   static constexpr u32 NINV0 = 0xefffffffu;  // -r^-1 mod 2^32
   __device__ static __forceinline__ u32 p(int i) { return kFrP[i]; }
+  __device__ static __forceinline__ u32 p2(int i) { return kFrP2[i]; }
 };
 struct FqTag {
   static constexpr u32 NINV0 = 0xe4866389u;  // -q^-1 mod 2^32
   __device__ static __forceinline__ u32 p(int i) { return kFqP[i]; }
+  __device__ static __forceinline__ u32 p2(int i) { return kFqP2[i]; }
 };
 
 template <class F>
@@ -57,133 +89,204 @@ struct Fq2E {
 };
 
 // ---------------------------------------------------------------------------
-// Device memory <-> registers. A field element's 16-bit limb i sits at
-// base[i * stride]; 32-bit limb k packs limbs 2k and 2k+1.
+// 256-bit carry chains (PTX). Each is one asm statement.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void load8(u32 v[8], const int32_t* base, i64 stride) {
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    v[k] = (u32)base[(2 * k) * stride] | ((u32)base[(2 * k + 1) * stride] << 16);
-  }
+// r += b (mod 2^256)
+__device__ __forceinline__ void add8(u32 (&r)[8], const u32 (&b)[8]) {
+  asm("add.cc.u32 %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, %12;\n\t"
+      "addc.cc.u32 %5, %5, %13;\n\t"
+      "addc.cc.u32 %6, %6, %14;\n\t"
+      "addc.u32 %7, %7, %15;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7])
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
 }
 
-__device__ __forceinline__ void store8(int32_t* base, i64 stride, const u32 v[8]) {
-#pragma unroll
-  for (int k = 0; k < 8; k++) {
-    base[(2 * k) * stride] = (int32_t)(v[k] & 0xffffu);
-    base[(2 * k + 1) * stride] = (int32_t)(v[k] >> 16);
-  }
+// r -= b (mod 2^256); returns 0xffffffff on a borrow, else 0
+__device__ __forceinline__ u32 sub8(u32 (&r)[8], const u32 (&b)[8]) {
+  u32 borrow;
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, 0, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7]), "=r"(borrow)
+      : "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]), "r"(b[4]), "r"(b[5]), "r"(b[6]), "r"(b[7]));
+  return borrow;
+}
+
+// One row i >= 1 of the CIOS product, t += a * b_i, on the accumulator
+// t = e + 2^32 * o (e holds the even limbs' products, o the odd limbs'
+// shifted down a word). The caller passes the previous row's o as e and
+// its e as o: that is the previous row's division by 2^32, where e[0] was
+// 0 and e[1] joins the new e[0] (first instruction) and e[2..7] become the
+// new o[0..5] (the odd chain reads them two words up).
+__device__ __forceinline__ void mad_row(u32 (&e)[8], u32 (&o)[8], const u32 (&a)[8], u32 bi) {
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "madc.lo.cc.u32 %8, %17, %24, %10;\n\t"
+      "madc.hi.cc.u32 %9, %17, %24, %11;\n\t"
+      "madc.lo.cc.u32 %10, %19, %24, %12;\n\t"
+      "madc.hi.cc.u32 %11, %19, %24, %13;\n\t"
+      "madc.lo.cc.u32 %12, %21, %24, %14;\n\t"
+      "madc.hi.cc.u32 %13, %21, %24, %15;\n\t"
+      "madc.lo.cc.u32 %14, %23, %24, 0;\n\t"
+      "madc.hi.u32 %15, %23, %24, 0;\n\t"
+      "mad.lo.cc.u32 %0, %16, %24, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %24, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, %24, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, %24, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, %24, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, %24, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, %24, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, %24, %7;\n\t"
+      "addc.u32 %15, %15, 0;"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]),
+        "+r"(e[7]), "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]),
+        "+r"(o[6]), "+r"(o[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]),
+        "r"(bi));
+}
+
+// The row's reduction: m = e[0] * n0', t += m * p, so that e[0] becomes 0.
+// The odd chain ends without a carry out: t < 2^288 (below), so o < 2^256
+// at every step; the even chain's carry lands on o[7].
+__device__ __forceinline__ void redc_row(u32 (&e)[8], u32 (&o)[8], const u32 (&p)[8], u32 ninv0) {
+  asm("{\n\t"
+      ".reg .u32 m;\n\t"
+      "mul.lo.u32 m, %0, %24;\n\t"
+      "mad.lo.cc.u32 %8, %17, m, %8;\n\t"
+      "madc.hi.cc.u32 %9, %17, m, %9;\n\t"
+      "madc.lo.cc.u32 %10, %19, m, %10;\n\t"
+      "madc.hi.cc.u32 %11, %19, m, %11;\n\t"
+      "madc.lo.cc.u32 %12, %21, m, %12;\n\t"
+      "madc.hi.cc.u32 %13, %21, m, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, m, %14;\n\t"
+      "madc.hi.u32 %15, %23, m, %15;\n\t"
+      "mad.lo.cc.u32 %0, %16, m, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, m, %1;\n\t"
+      "madc.lo.cc.u32 %2, %18, m, %2;\n\t"
+      "madc.hi.cc.u32 %3, %18, m, %3;\n\t"
+      "madc.lo.cc.u32 %4, %20, m, %4;\n\t"
+      "madc.hi.cc.u32 %5, %20, m, %5;\n\t"
+      "madc.lo.cc.u32 %6, %22, m, %6;\n\t"
+      "madc.hi.cc.u32 %7, %22, m, %7;\n\t"
+      "addc.u32 %15, %15, 0;\n\t"
+      "}"
+      : "+r"(e[0]), "+r"(e[1]), "+r"(e[2]), "+r"(e[3]), "+r"(e[4]), "+r"(e[5]), "+r"(e[6]),
+        "+r"(e[7]), "+r"(o[0]), "+r"(o[1]), "+r"(o[2]), "+r"(o[3]), "+r"(o[4]), "+r"(o[5]),
+        "+r"(o[6]), "+r"(o[7])
+      : "r"(p[0]), "r"(p[1]), "r"(p[2]), "r"(p[3]), "r"(p[4]), "r"(p[5]), "r"(p[6]), "r"(p[7]),
+        "r"(ninv0));
+}
+
+// r = e + o / 2^32 (o[0] is 0): the product's last division by 2^32
+__device__ __forceinline__ void merge_row(u32 (&r)[8], const u32 (&o)[8]) {
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.u32 %7, %7, 0;"
+      : "+r"(r[0]), "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7])
+      : "r"(o[0]), "r"(o[1]), "r"(o[2]), "r"(o[3]), "r"(o[4]), "r"(o[5]), "r"(o[6]), "r"(o[7]));
 }
 
 // ---------------------------------------------------------------------------
-// Prime-field arithmetic (inputs canonical, outputs canonical)
+// Prime-field arithmetic: inputs and outputs in [0, 2p)
 // ---------------------------------------------------------------------------
 
 template <class F>
-__device__ __forceinline__ Elem<F> zero_elem() {
-  Elem<F> r;
+__device__ __forceinline__ void load_p(u32 (&p)[8]) {
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.v[i] = 0;
-  return r;
+  for (int i = 0; i < 8; i++) p[i] = F::p(i);
+}
+template <class F>
+__device__ __forceinline__ void load_p2(u32 (&p)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) p[i] = F::p2(i);
 }
 
-// x - p if x >= p (x < 2p < 2^255, so no carry bit above limb 7)
+// x mod p for x < 2p: the canonical representative
 template <class F>
-__device__ __forceinline__ Elem<F> reduce_once(const Elem<F>& x) {
-  Elem<F> d;
-  i64 br = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    i64 s = (i64)x.v[i] - (i64)F::p(i) + br;
-    d.v[i] = (u32)s;
-    br = s >> 32;  // 0 or -1
-  }
+__device__ __forceinline__ Elem<F> canon(const Elem<F>& x) {
+  u32 p[8];
+  load_p<F>(p);
+  Elem<F> d = x;
+  u32 borrow = sub8(d.v, p);
   Elem<F> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.v[i] = br < 0 ? x.v[i] : d.v[i];
+  for (int i = 0; i < 8; i++) r.v[i] = borrow ? x.v[i] : d.v[i];
   return r;
 }
 
 template <class F>
 __device__ __forceinline__ Elem<F> add(const Elem<F>& a, const Elem<F>& b) {
-  Elem<F> t;
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    c += (u64)a.v[i] + b.v[i];
-    t.v[i] = (u32)c;
-    c >>= 32;
-  }
-  return reduce_once(t);
-}
-
-template <class F>
-__device__ __forceinline__ Elem<F> sub(const Elem<F>& a, const Elem<F>& b) {
-  Elem<F> d, e;
-  i64 br = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    i64 s = (i64)a.v[i] - (i64)b.v[i] + br;
-    d.v[i] = (u32)s;
-    br = s >> 32;
-  }
-  u64 c = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    c += (u64)d.v[i] + F::p(i);
-    e.v[i] = (u32)c;
-    c >>= 32;
-  }
+  u32 p2[8];
+  load_p2<F>(p2);
+  Elem<F> s = a;
+  add8(s.v, b.v);  // < 4p < 2^256
+  Elem<F> d = s;
+  u32 borrow = sub8(d.v, p2);
   Elem<F> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.v[i] = br < 0 ? e.v[i] : d.v[i];
+  for (int i = 0; i < 8; i++) r.v[i] = borrow ? s.v[i] : d.v[i];
   return r;
 }
 
 template <class F>
-__device__ __forceinline__ Elem<F> neg(const Elem<F>& a) {
-  return sub(zero_elem<F>(), a);
+__device__ __forceinline__ Elem<F> sub(const Elem<F>& a, const Elem<F>& b) {
+  Elem<F> d = a;
+  u32 borrow = sub8(d.v, b.v);
+  u32 back[8];
+#pragma unroll
+  for (int i = 0; i < 8; i++) back[i] = F::p2(i) & borrow;
+  add8(d.v, back);
+  return d;
 }
 
-// CIOS Montgomery product a*b/2^256 mod p. With a, b < p and 4p < 2^256 the
-// loop ends below 2p; one conditional subtraction makes it canonical.
-// Kept out of line: inlined into the G2 kernels (dozens of products each)
-// it made nvcc 12.8 crash (segfault after 34 s on the H100 host); out of
-// line the whole library builds in 22 s.
+// CIOS Montgomery product a*b/2^256 mod p, in [0, 2p) for a, b < 2p: the
+// accumulator t stays below (a + p) * 2^32 < 2^288 before each row's
+// division, and ends below 2p since 4p < 2^256. Row 0 needs no additions.
 template <class F>
-__device__ __noinline__ Elem<F> mul(const Elem<F>& a, const Elem<F>& b) {
-  u32 t[10];
+__device__ __forceinline__ Elem<F> mul(const Elem<F>& a, const Elem<F>& b) {
+  u32 p[8];
+  load_p<F>(p);
+  u32 ev[8], od[8];
 #pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    u64 c = 0;
-#pragma unroll
-    for (int j = 0; j < 8; j++) {
-      c += (u64)a.v[j] * b.v[i] + t[j];
-      t[j] = (u32)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[8] = (u32)c;
-    t[9] = (u32)(c >> 32);
-    u32 m = t[0] * F::NINV0;
-    c = ((u64)m * F::p(0) + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < 8; j++) {
-      c += (u64)m * F::p(j) + t[j];
-      t[j - 1] = (u32)c;
-      c >>= 32;
-    }
-    c += t[8];
-    t[7] = (u32)c;
-    t[8] = t[9] + (u32)(c >> 32);
+  for (int j = 0; j < 8; j += 2) {
+    ev[j] = a.v[j] * b.v[0];
+    ev[j + 1] = __umulhi(a.v[j], b.v[0]);
+    od[j] = a.v[j + 1] * b.v[0];
+    od[j + 1] = __umulhi(a.v[j + 1], b.v[0]);
   }
+  redc_row(ev, od, p, F::NINV0);
+#pragma unroll
+  for (int i = 1; i < 8; i += 2) {
+    mad_row(od, ev, a.v, b.v[i]);
+    redc_row(od, ev, p, F::NINV0);
+    if (i + 1 < 8) {
+      mad_row(ev, od, a.v, b.v[i + 1]);
+      redc_row(ev, od, p, F::NINV0);
+    }
+  }
+  merge_row(ev, od);
   Elem<F> r;
 #pragma unroll
-  for (int i = 0; i < 8; i++) r.v[i] = t[i];
-  return reduce_once(r);
+  for (int i = 0; i < 8; i++) r.v[i] = ev[i];
+  return r;
 }
 
 template <class F>
@@ -191,6 +294,7 @@ __device__ __forceinline__ Elem<F> sqr(const Elem<F>& a) {
   return mul(a, a);
 }
 
+// canonical inputs only (invariant 3)
 template <class F>
 __device__ __forceinline__ bool is_zero(const Elem<F>& a) {
   u32 acc = 0;
@@ -200,8 +304,34 @@ __device__ __forceinline__ bool is_zero(const Elem<F>& a) {
 }
 
 // ---------------------------------------------------------------------------
+// Device memory <-> registers. A field element's 16-bit limb i sits at
+// base[i * stride]; 32-bit limb k packs limbs 2k and 2k+1. store8 writes the
+// canonical representative.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void load8(u32 v[8], const int32_t* base, i64 stride) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    v[k] = (u32)base[(2 * k) * stride] | ((u32)base[(2 * k + 1) * stride] << 16);
+  }
+}
+
+template <class F>
+__device__ __forceinline__ void store8(int32_t* base, i64 stride, const Elem<F>& x) {
+  Elem<F> c = canon(x);
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    base[(2 * k) * stride] = (int32_t)(c.v[k] & 0xffffu);
+    base[(2 * k + 1) * stride] = (int32_t)(c.v[k] >> 16);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Fq2 = Fq[u]/(u^2 + 1)
 // ---------------------------------------------------------------------------
+
+// the Fq products inside Fq2 products, out of line (see the top)
+static __device__ __noinline__ FqE fq2_part_mul(FqE a, FqE b) { return mul(a, b); }
 
 __device__ __forceinline__ Fq2E add(const Fq2E& a, const Fq2E& b) {
   return {add(a.c0, b.c0), add(a.c1, b.c1)};
@@ -210,14 +340,14 @@ __device__ __forceinline__ Fq2E sub(const Fq2E& a, const Fq2E& b) {
   return {sub(a.c0, b.c0), sub(a.c1, b.c1)};
 }
 __device__ __forceinline__ Fq2E mul(const Fq2E& a, const Fq2E& b) {
-  FqE t0 = mul(a.c0, b.c0);
-  FqE t1 = mul(a.c1, b.c1);
-  FqE t2 = mul(add(a.c0, a.c1), add(b.c0, b.c1));
+  FqE t0 = fq2_part_mul(a.c0, b.c0);
+  FqE t1 = fq2_part_mul(a.c1, b.c1);
+  FqE t2 = fq2_part_mul(add(a.c0, a.c1), add(b.c0, b.c1));
   return {sub(t0, t1), sub(sub(t2, t0), t1)};
 }
 __device__ __forceinline__ Fq2E sqr(const Fq2E& a) {
-  FqE c0 = mul(add(a.c0, a.c1), sub(a.c0, a.c1));
-  FqE t = mul(a.c0, a.c1);
+  FqE c0 = fq2_part_mul(add(a.c0, a.c1), sub(a.c0, a.c1));
+  FqE t = fq2_part_mul(a.c0, a.c1);
   return {c0, add(t, t)};
 }
 __device__ __forceinline__ bool is_zero(const Fq2E& a) { return is_zero(a.c0) && is_zero(a.c1); }
@@ -241,7 +371,8 @@ __device__ __forceinline__ Fq2E b3_mul(const Fq2E& a) {
 
 // ---------------------------------------------------------------------------
 // Points. In device memory a point is (16, C, coords) limb-major words at
-// one lane: word (i*C + m)*coords + c at offset word * n.
+// one lane: word (i*C + m)*coords + c at offset word * n. An AoS point row
+// is the same at n = 1: 16*C*coords consecutive words.
 // ---------------------------------------------------------------------------
 
 template <class E>
@@ -261,11 +392,11 @@ __device__ __forceinline__ void load_elem(Fq2E& e, const int32_t* lane, int coor
   load8(e.c1.v, lane + (coords + c) * n, 2 * coords * n);
 }
 __device__ __forceinline__ void store_elem(int32_t* lane, int c, i64 n, const FqE& e) {
-  store8(lane + c * n, 3 * n, e.v);
+  store8(lane + c * n, 3 * n, e);
 }
 __device__ __forceinline__ void store_elem(int32_t* lane, int c, i64 n, const Fq2E& e) {
-  store8(lane + c * n, 6 * n, e.c0.v);
-  store8(lane + (3 + c) * n, 6 * n, e.c1.v);
+  store8(lane + c * n, 6 * n, e.c0);
+  store8(lane + (3 + c) * n, 6 * n, e.c1);
 }
 
 template <class E>
@@ -288,6 +419,44 @@ __device__ __forceinline__ void store_proj(int32_t* lane, i64 n, const Proj<E>& 
   store_elem(lane, 0, n, p.x);
   store_elem(lane, 1, n, p.y);
   store_elem(lane, 2, n, p.z);
+}
+
+// A row of W words (16-byte aligned) with 16-byte loads and stores.
+template <int W>
+__device__ __forceinline__ void load_row(int32_t (&w)[W], const int32_t* row) {
+  const int4* src = reinterpret_cast<const int4*>(row);
+#pragma unroll
+  for (int i = 0; i < W / 4; i++) {
+    int4 v = __ldg(src + i);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_row(int32_t* row, const int32_t (&w)[W]) {
+  int4* dst = reinterpret_cast<int4*>(row);
+#pragma unroll
+  for (int i = 0; i < W / 4; i++) {
+    dst[i] = make_int4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+  }
+}
+
+// a projective point as a row of 16*C*3 words (store_proj at stride 1)
+template <class E, int C>
+__device__ __forceinline__ void store_point(int32_t* row, const Proj<E>& p) {
+  int32_t w[16 * C * 3];
+  store_proj(w, 1, p);
+  store_row(row, w);
+}
+
+template <class E, int C>
+__device__ __forceinline__ Proj<E> load_point(const int32_t* row) {
+  int32_t w[16 * C * 3];
+  load_row(w, row);
+  return load_proj<E>(w, 1);
 }
 
 __device__ __forceinline__ void set_identity(Proj<FqE>& p) {
@@ -334,6 +503,7 @@ __device__ __forceinline__ Proj<E> rcb_add(const Proj<E>& p, const Proj<E>& q) {
 }
 
 // p + q with q affine; q = (0, 0) is the point at infinity and returns p.
+// q is a loaded, canonical input (invariant 3).
 template <class E>
 __device__ __forceinline__ Proj<E> rcb_add_mixed(const Proj<E>& p, const Aff<E>& q) {
   if (is_zero(q.x) && is_zero(q.y)) return p;

@@ -35,7 +35,9 @@
 //
 // What bounds them: 32-bit integer multiplies (a G1 add is 11-12
 // Montgomery products, a G2 add 39-42, against 80-288 bytes of rows), as
-// for K2. The fine scan has 10^5 lanes and fills the card; the coarse scan
+// for K2, on the same field core (bn254.cuh: PTX carry chains, inlined
+// products, values in [0, 2p) in registers, canonical at every store and
+// at put_point). The fine scan has 10^5 lanes and fills the card; the coarse scan
 // has only 512-768 lanes, which is why it splits each lane among T threads
 // (its extra adds, about k + T*log2(T) a lane, are the price). The wrapper's
 // T (SCAN_CHUNKS) and the fine scan's block size (FINE_THREADS) are the
@@ -52,47 +54,12 @@ namespace {
 constexpr int kMaxThreads = 256;  // threads per block of either scan, at most
 constexpr int kCoarseMinThreads = 128;
 
-template <int W>
-__device__ __forceinline__ void load_row(int32_t (&w)[W], const int32_t* row) {
-  const int4* src = reinterpret_cast<const int4*>(row);
-#pragma unroll
-  for (int i = 0; i < W / 4; i++) {
-    int4 v = __ldg(src + i);
-    w[4 * i] = v.x;
-    w[4 * i + 1] = v.y;
-    w[4 * i + 2] = v.z;
-    w[4 * i + 3] = v.w;
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_row(int32_t* row, const int32_t (&w)[W]) {
-  int4* dst = reinterpret_cast<int4*>(row);
-#pragma unroll
-  for (int i = 0; i < W / 4; i++) {
-    dst[i] = make_int4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
-  }
-}
-
-// a projective point as a row of 16*C*3 words (store_proj at stride 1)
-template <class E, int C>
-__device__ __forceinline__ void store_point(int32_t* row, const Proj<E>& p) {
-  int32_t w[16 * C * 3];
-  store_proj(w, 1, p);
-  store_row(row, w);
-}
-
-template <class E, int C>
-__device__ __forceinline__ Proj<E> load_point(const int32_t* row) {
-  int32_t w[16 * C * 3];
-  load_row(w, row);
-  return load_proj<E>(w, 1);
-}
-
-// shared memory holds one point per thread, word q of thread i at q*stride + i
+// shared memory holds one point per thread, word q of thread i at q*stride
+// + i; put_elem writes the canonical representative (bn254.cuh invariant 2)
 __device__ __forceinline__ void put_elem(u32* s, int q, int stride, const FqE& e) {
+  FqE c = canon(e);
 #pragma unroll
-  for (int i = 0; i < 8; i++) s[(q + i) * stride] = e.v[i];
+  for (int i = 0; i < 8; i++) s[(q + i) * stride] = c.v[i];
 }
 __device__ __forceinline__ void put_elem(u32* s, int q, int stride, const Fq2E& e) {
   put_elem(s, q, stride, e.c0);

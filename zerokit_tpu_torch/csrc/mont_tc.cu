@@ -173,8 +173,7 @@ __global__ void __launch_bounds__(kThreads)
       acc >>= 32;
     }
   }
-  r = reduce_once(r);
-  if (live) store8(out + i, n, r.v);
+  if (live) store8(out + i, n, r);  // r < 2q; store8 makes it canonical
 }
 
 }  // namespace

@@ -14,7 +14,9 @@
 // per stage, the tail keeps a chunk in shared memory for all of its
 // log2(P) stages (16 KB at P = 512) and touches device memory once. K4 runs
 // one thread per butterfly; K5 one block per (batch row, chunk) with P/2
-// threads, stages separated by __syncthreads. Every power-of-two n >= 2 and
+// threads, stages separated by __syncthreads; values between stages stay in
+// [0, 2p) (bn254.cuh's lazy reduction) and store8 makes them canonical.
+// Every power-of-two n >= 2 and
 // every B are taken (the TPU path sent n % 1024 != 0 or B % 8 != 0 to XLA).
 
 #include <cuda_runtime.h>
@@ -59,8 +61,8 @@ __global__ void __launch_bounds__(kStageThreads)
   load8(v.v, xr + lo + m, stride);
   load8(w.v, tw + j, m);
   butterfly<Dif>(u, v, w);
-  store8(orow + lo, stride, u.v);
-  store8(orow + lo + m, stride, v.v);
+  store8(orow + lo, stride, u);
+  store8(orow + lo + m, stride, v);
 }
 
 // x, out: (16, b, n); tail_tw: (16, P) with stage m's twiddles at [m, 2m);
@@ -115,7 +117,7 @@ __global__ void __launch_bounds__(kMaxTail / 2)
       load8(w.v, table + base + e, n);
       v = mul(v, w);
     }
-    store8(orow + e, stride, v.v);
+    store8(orow + e, stride, v);
   }
 }
 

@@ -45,7 +45,8 @@ _LL = ctypes.c_longlong
 # entry point -> argument types (the stream is the last pointer)
 _SIGNATURES = {
     "zk_mont_mul": (_I, _P, _P, _P, _LL, _P),
-    "zk_ec_op": (_I, _I, _P, _P, _P, _LL, _P),
+    "zk_ec_op": (_I, _I, _P, _P, _P, _LL, _I, _P),
+    "zk_ec_add_gather": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _P),
     "zk_ec_scan_gather": (_I, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "zk_ec_scan_excl": (_I, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _P),
     "zk_ntt_stage": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
@@ -197,13 +198,13 @@ def _sass(path: str) -> str:
                           text=True, check=True).stdout
 
 
-def sass_opcodes(function_substring: str) -> collections.Counter:
+def sass_opcodes(*function_substrings: str) -> collections.Counter:
     """Opcode counts (with modifiers, e.g. IMAD.WIDE.U32, IMMA.16832.U8.U8)
-    of the built library's functions whose mangled name contains the
+    of the built library's functions whose mangled name contains every
     substring, from cuobjdump -sass."""
     counts: collections.Counter = collections.Counter()
     for section in _sass(build()).split("Function : ")[1:]:
         name, _, body = section.partition("\n")
-        if function_substring in name:
+        if all(sub in name for sub in function_substrings):
             counts.update(_SASS_OP.findall(body))
     return counts

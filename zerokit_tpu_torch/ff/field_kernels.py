@@ -7,6 +7,9 @@ Counterpart of zerokit_tpu/ff/pallas_field.py; same signatures and layouts:
   * ec_op (K2, `ec_op<Curve,Op>`): RCB15 complete add (Alg 7), mixed add
     with the (0, 0) affine-infinity select (Alg 8) and doubling (Alg 9), on
     points (16, C, coords, *batch), C = 1 (G1) or 2 (G2).
+  * ec_add_gather (K2, `ec_add_gather<Curve>`): the add of two AoS
+    projective rows read through int32 row indices, or the identity where a
+    flag says the bucket is empty, into SoA points: the MSM pass's Q_d step.
   * K3, the EC prefix scans (csrc/ec_scan.cu) on AoS point rows (16*C*coords
     words, word order (limb, comp, coord)): ec_scan_gather (`ec_scan_gather
     <Curve>`, the MSM's fine scan) reads affine table rows through a row
@@ -36,7 +39,12 @@ from .field import SPECS, mont_mul_sos
 from .fq2 import Fq2PlainAdapter, FqPlainAdapter
 
 L = NUM_LIMBS
-launches = {"mont_mul": 0, "ec_op": 0, "ec_scan_gather": 0, "ec_scan_excl": 0}
+launches = {"mont_mul": 0, "ec_op": 0, "ec_add_gather": 0, "ec_scan_gather": 0,
+            "ec_scan_excl": 0}
+# threads per block of K2 (ec_op, ec_add_gather), G1 and G2 alike, from the
+# sweep in PERF.md
+EC_THREADS = 64
+MAX_THREADS = 256
 # threads per lane of the coarse scan (K3 "excl") and threads per block of
 # the fine scan (K3 "mixed"), from the sweeps in PERF.md
 SCAN_CHUNKS = 64
@@ -211,13 +219,34 @@ def identity_points(components: int, n: int, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _block(threads: Optional[int]) -> int:
+    threads = EC_THREADS if threads is None else threads
+    if not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"threads per block must lie in [32, {MAX_THREADS}], got {threads}")
+    return threads
+
+
+def _check_index(index: torch.Tensor, n_rows: int, what: str) -> None:
+    """Kernels read rows at these int32 values unchecked. The check raises
+    at once on the CPU and as a device-side assert on the card, so it
+    never waits for the card."""
+    if index.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32, got {index.dtype}")
+    if index.numel():
+        lo, hi = torch.aminmax(index)
+        torch._assert_async((lo >= 0) & (hi < n_rows),
+                            f"{what} values must lie in [0, {n_rows})")
+
+
 def ec_op(
-    op: str, components: int, p: torch.Tensor, q: Optional[torch.Tensor] = None
+    op: str, components: int, p: torch.Tensor, q: Optional[torch.Tensor] = None,
+    threads: Optional[int] = None,
 ) -> torch.Tensor:
     """EC kernel on (16, C, coords, *batch) int32 points.
 
     op in {add, add_mixed, double}; q is (16, C, 3 or 2, *batch), None for
-    double. Returns (16, C, 3, *batch)."""
+    double. Returns (16, C, 3, *batch). threads: per block of the kernel,
+    32-256 (default EC_THREADS)."""
     if op not in _OP_IDS:
         raise ValueError(f"unknown EC op {op!r}")
     batch = tuple(p.shape[3:])
@@ -227,6 +256,7 @@ def ec_op(
         coords = 3 if op == "add" else 2
         if q is None or tuple(q.shape) != (L, components, coords) + batch:
             raise ValueError(f"ec_op {op}: q must be (16, {components}, {coords}) + {batch}")
+    threads = _block(threads)
     tensors = (p,) if op == "double" else (p, q)
     if not on_cuda(*tensors):
         return ec_op_plain(op, components, p, q)
@@ -236,7 +266,7 @@ def ec_op(
     n = p.numel() // (L * components * 3)
     if n:
         _cuda.launch(
-            "zk_ec_op", components - 1, _OP_IDS[op], p, p if q is None else q, out, n
+            "zk_ec_op", components - 1, _OP_IDS[op], p, p if q is None else q, out, n, threads
         )
         launches["ec_op"] += 1
     return out
@@ -254,6 +284,63 @@ def ec_op_plain(op: str, components: int, p: torch.Tensor, q=None) -> torch.Tens
     else:
         out = rcb_double(fq, p2)
     return out.reshape((L, components, 3) + batch)
+
+
+def ec_add_gather(components: int, fine_rows: torch.Tensor, fidx: torch.Tensor,
+                  coarse_rows: torch.Tensor, cidx: torch.Tensor, empty: torch.Tensor,
+                  threads: Optional[int] = None) -> torch.Tensor:
+    """K2's add through row indices (the MSM pass's Q_d step): per lane i
+    of fidx's shape, the identity where empty[i], else rcb_add(fine_rows
+    [fidx[i]], coarse_rows[cidx[i]]).
+
+    fine_rows, coarse_rows: (R, 16*C*3) int32 AoS projective rows, word
+    order (limb, comp, coord); fidx, cidx: int32 row indices and empty:
+    bool, all of one shape. Returns (16, C, 3) + that shape. threads: per
+    block of the kernel, 32-256 (default EC_THREADS)."""
+    _, rows = _scan_rows(components, "excl")
+    for t, name in ((fine_rows, "fine_rows"), (coarse_rows, "coarse_rows")):
+        if t.ndim != 2 or t.shape[1] != rows:
+            raise ValueError(f"ec_add_gather: {name} must be (R, {rows}), got {tuple(t.shape)}")
+    if fidx.shape != cidx.shape or empty.shape != fidx.shape:
+        raise ValueError(f"ec_add_gather: fidx, cidx and empty must share one shape, got "
+                         f"{tuple(fidx.shape)}, {tuple(cidx.shape)}, {tuple(empty.shape)}")
+    if empty.dtype != torch.bool:
+        raise TypeError(f"ec_add_gather: empty must be bool, got {empty.dtype}")
+    _check_index(fidx, fine_rows.shape[0], "ec_add_gather: fidx")
+    _check_index(cidx, coarse_rows.shape[0], "ec_add_gather: cidx")
+    threads = _block(threads)
+    if not on_cuda(fine_rows, fidx, coarse_rows, cidx, empty):
+        return ec_add_gather_plain(components, fine_rows, fidx, coarse_rows, cidx, empty)
+    for t, name in ((fine_rows, "fine_rows"), (coarse_rows, "coarse_rows"), (fidx, "fidx"),
+                    (cidx, "cidx")):
+        check_limbs(t, name)
+        if name.endswith("rows") and t.data_ptr() % 16:
+            raise ValueError(f"ec_add_gather: {name} must be 16-byte aligned")
+    if not empty.is_contiguous():
+        raise ValueError("ec_add_gather: expected a contiguous empty")
+    out = torch.empty((L, components, 3) + tuple(fidx.shape), dtype=torch.int32,
+                      device=fidx.device)
+    if fidx.numel():
+        _cuda.launch("zk_ec_add_gather", components - 1, fine_rows, fidx, coarse_rows, cidx,
+                     empty, out, fidx.numel(), threads)
+        launches["ec_add_gather"] += 1
+    return out
+
+
+def ec_add_gather_plain(components: int, fine_rows: torch.Tensor, fidx: torch.Tensor,
+                        coarse_rows: torch.Tensor, cidx: torch.Tensor,
+                        empty: torch.Tensor) -> torch.Tensor:
+    """Plain version of ec_add_gather: two gathers into SoA, ec_op_plain
+    "add", the identity where empty."""
+
+    def soa(rows, idx):  # AoS rows at idx -> (16, C, 3, lanes)
+        return (rows[idx.reshape(-1).long()].reshape(-1, L, components, 3)
+                .permute(1, 2, 3, 0).contiguous())
+
+    q = ec_op_plain("add", components, soa(fine_rows, fidx), soa(coarse_rows, cidx))
+    ident = identity_points(components, q.shape[-1], q.device)
+    q = torch.where(empty.reshape(-1), ident, q)
+    return q.reshape((L, components, 3) + tuple(fidx.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +370,7 @@ def ec_scan_gather(components: int, table_rows: torch.Tensor, index: torch.Tenso
     if index.ndim != 3:
         raise ValueError(f"ec_scan_gather: index must be (outer, k, inner), "
                          f"got {tuple(index.shape)}")
-    if index.numel():
-        # the kernel reads table rows at these values unchecked; the check
-        # raises at once on the CPU and as a device-side assert on the card,
-        # so it never waits for the card
-        lo, hi = torch.aminmax(index)
-        torch._assert_async((lo >= 0) & (hi < table_rows.shape[0]),
-                            f"ec_scan_gather: index values must lie in [0, {table_rows.shape[0]})")
+    _check_index(index, table_rows.shape[0], "ec_scan_gather: index")
     if not on_cuda(table_rows, index):
         return ec_scan_gather_plain(components, table_rows, index)
     check_limbs(table_rows, "table_rows")

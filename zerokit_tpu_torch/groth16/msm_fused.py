@@ -13,7 +13,9 @@ same algorithm and stage order:
      index, written as rows in sorted order;
   5. the coarse scan (K3 "excl", ec_scan_excl): exclusive prefixes of the
      block totals, the fine prefixes at the end of each block, read in place;
-  6. the Q_d gathers: Q_d = fine[C(d)-1] + coarse[(C(d)-1) div k] (K2 add);
+  6. the Q_d bucket adds: Q_d = fine[C(d)-1] + coarse[(C(d)-1) div k], or
+     the identity where C(d) = 0 (K2 ec_add_gather, which reads both rows
+     through int32 indices itself; bucket_rows makes them);
   7. the telescope 255*S_total - sum_{d<255} Q_d, with sum_d Q_d as a
      halving tree of K2 adds and 255*S as 256*S - S (8 K2 doublings);
   8. the windows' sum (the tables carry the 2^(8w) factors): a halving tree.
@@ -29,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import NUM_LIMBS
-from ..ff.field_kernels import ec_scan_excl, ec_scan_gather
+from ..ff.field_kernels import ec_add_gather, ec_scan_excl, ec_scan_gather
 from ..runtime.profiling import span
 from .curve import CurveOps
 
@@ -80,6 +82,41 @@ def sorted_table_index(dg: torch.Tensor, first_window: int, n_windows: int,
     return (window * n + inst[None, None, :] + (skeys & ((1 << idx_bits) - 1))).to(torch.int32)
 
 
+def bucket_counts(dg: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """Digits (G, n, B) -> counts (G, n_buckets - 1, B) int64: C(d) =
+    #(digit <= d) per window and lane, d in [0, n_buckets - 2]."""
+    group, _, batch = dg.shape
+    device = dg.device
+    g_iota = torch.arange(group, dtype=torch.int64, device=device)[:, None, None]
+    b_iota = torch.arange(batch, dtype=torch.int64, device=device)[None, None, :]
+    hist = torch.zeros(group * n_buckets * batch, dtype=torch.int64, device=device)
+    hist.index_add_(
+        0,
+        ((g_iota * n_buckets + dg) * batch + b_iota).reshape(-1),
+        torch.ones(dg.numel(), dtype=torch.int64, device=device),
+    )
+    return hist.reshape(group, n_buckets, batch).cumsum(dim=1)[:, : n_buckets - 1]
+
+
+def bucket_rows(counts: torch.Tensor, n: int, k: int):
+    """Counts (G, nb-1, B), C(d) = #(digit <= d) -> (fidx, cidx, empty),
+    each (G, nb, B): per window, bucket d and lane, the fine-prefix row of
+    the bucket's last sorted point (position C(d) - 1; the last bucket
+    takes all n points), the coarse-prefix row of that point's block of k,
+    both int32 rows of the pass's dense (G, n, B) / (G, n/k, B) outputs,
+    and whether the bucket is empty (C(d) = 0)."""
+    group, _, batch = counts.shape
+    device = counts.device
+    total = torch.full((group, 1, batch), n, dtype=counts.dtype, device=device)
+    c_all = torch.cat([counts, total], dim=1)
+    pos = (c_all - 1).clamp(min=0).to(torch.int32)
+    g_iota = torch.arange(group, dtype=torch.int32, device=device)[:, None, None]
+    b_iota = torch.arange(batch, dtype=torch.int32, device=device)[None, None, :]
+    fidx = (g_iota * n + pos) * batch + b_iota
+    cidx = (g_iota * (n // k) + pos // k) * batch + b_iota
+    return fidx, cidx, c_all == 0
+
+
 def fused_msm_pass(
     cv: CurveOps,
     tables_flat: torch.Tensor,
@@ -97,7 +134,6 @@ def fused_msm_pass(
     comp, coord), instance-major; scalars: (16, n, M*B) canonical limbs with
     lane order (m, b). Returns projective accumulators (16, C, 3, M*B)."""
     comps = cv.components
-    device = scalars.device
     n_buckets = 1 << c_bits
     batch = scalars.shape[2]
     if n_windows % group or n % k:
@@ -107,22 +143,13 @@ def fused_msm_pass(
     rows_out = L * comps * 3
     with span("msm.digits"):
         digits = digits_for_windows(scalars, n_windows, c_bits)  # (W, n, B)
-    g_iota = torch.arange(group, dtype=torch.int64, device=device)[:, None, None]
-    b_iota = torch.arange(batch, dtype=torch.int64, device=device)[None, None, :]
     window_results = []
     for g in range(n_groups):
         dg = digits[g * group : (g + 1) * group]  # (G, n, B)
         with span("msm.sort"):
             index = sorted_table_index(dg, g * group, n_windows, n_instances)
         with span("msm.fine"):
-            # -- counts C(d) = #(digit <= d), d in [0, nb-2] ----------------
-            hist = torch.zeros(group * n_buckets * batch, dtype=torch.int64, device=device)
-            hist.index_add_(
-                0,
-                ((g_iota * n_buckets + dg) * batch + b_iota).reshape(-1),
-                torch.ones(dg.numel(), dtype=torch.int64, device=device),
-            )
-            counts = hist.reshape(group, n_buckets, batch).cumsum(dim=1)[:, : n_buckets - 1]
+            counts = bucket_counts(dg, n_buckets)
             # -- intra-block inclusive prefixes: K3 mixed, lanes (g, blk, b) -
             fine = ec_scan_gather(comps, tables_flat, index.view(group * nb_blk, k, batch))
         with span("msm.coarse"):
@@ -130,24 +157,12 @@ def fused_msm_pass(
             totals = fine.view(group, nb_blk, k, batch, rows_out)[:, :, k - 1]
             coarse = ec_scan_excl(comps, totals)  # (G, NB, B, rows_out)
         with span("msm.qgather"):
-            # -- Q_d gathers ------------------------------------------------
-            total_col = torch.full((group, 1, batch), n, dtype=torch.int64, device=device)
-            c_all = torch.cat([counts, total_col], dim=1)  # (G, nb, B)
-            idx = (c_all - 1).clamp(min=0)  # position in [0, n)
-            fflat = ((g_iota * n + idx) * batch + b_iota).reshape(-1)
-            cflat = ((g_iota * nb_blk + idx // k) * batch + b_iota).reshape(-1)
-
-            def rows_to_soa(r):
-                """(G*nb*B, rows_out) AoS -> (16, C, 3, G, nb, B)."""
-                t = r.reshape(group, n_buckets, batch, L, comps, 3)
-                return t.permute(3, 4, 5, 0, 1, 2).contiguous()
-
-            q = cv.add(rows_to_soa(fine.view(-1, rows_out)[fflat]),
-                       rows_to_soa(coarse.view(-1, rows_out)[cflat]))
-            ident = cv.identity_like(q)
-            q = torch.where((c_all == 0)[None, None, None], ident, q)
+            # -- Q_d: K2 adds through the bucket rows, (16, C, 3, G, nb, B) --
+            fidx, cidx, empty = bucket_rows(counts, n, k)
+            q = ec_add_gather(comps, fine.view(-1, rows_out), fidx, coarse.view(-1, rows_out),
+                              cidx, empty)
             s_total = q[:, :, :, :, n_buckets - 1].contiguous()
-            q[:, :, :, :, n_buckets - 1] = ident[:, :, :, :, n_buckets - 1]
+            q[:, :, :, :, n_buckets - 1] = cv.identity_like(s_total)
         with span("msm.sumq"):
             # -- sum_d Q_d: halving tree ------------------------------------
             sum_q = tree_sum(cv, q, 4)

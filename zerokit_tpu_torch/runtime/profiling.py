@@ -371,6 +371,13 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
       K1 lanes                       mont_mul on (16, lanes)
       K2 op, comps, lanes[, skipped] ec_op; skipped: add_mixed lanes whose q
                                      is the (0, 0) sentinel (no products)
+      K2 op="add_gather", comps, lanes, skipped, rows_read  ec_add_gather:
+                                     skipped = empty lanes (no products);
+                                     the two int32 indices and the empty
+                                     flag of every lane, the rows_read
+                                     distinct fine and coarse rows its
+                                     other lanes reach, once each, and the
+                                     SoA points written
       K3 kind, comps, k, lanes[, skipped, table_rows]  a scan of k steps over
                                      lanes: "mixed" (ec_scan_gather; with
                                      table_rows, the distinct table rows its
@@ -395,6 +402,10 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
     if key == "K2":
         op, comps, n = shape["op"], shape["comps"], shape["lanes"]
         live = n - shape.get("skipped", 0)
+        if op == "add_gather":
+            words = _point_words(comps, 3) * (shape["rows_read"] + n)
+            return (live * EC_OP_MONT_MULS[(comps, "add")] * MONT_MUL_IMADS,
+                    words * w + n * (2 * w + 1))
         q_coords = {"add": 3, "add_mixed": 2, "double": 0}[op]
         words = _point_words(comps, 3) * 2 + _point_words(comps, q_coords)
         return live * EC_OP_MONT_MULS[(comps, op)] * MONT_MUL_IMADS, words * w * n
