@@ -13,18 +13,22 @@ scan through a sorted index made by the pass's own sort, K2's bucket add
 through the rows the pass's own counts give), with both timed on the card;
 the inputs hold edge values of the lazy field core (sums of exactly p,
 (p-1)^2, values just above p - 2^32); the sweeps of K2's block size, the
-fine scan's block size and the coarse scan's threads per lane, (4) a batch
+fine scan's block size, the coarse scan's threads per lane and K5's chunk
+P (each P's tail calls against the plain version at that P, its
+occupancy, and each P's whole coset lift, equal to P = 512's), (4) a batch
 of 16 depth-20 RLN proofs through Groth16Prover.prove_batch with pairing
 verification and lane-0 MSMs held against the native host MSMs, (5) a
 second, warm batch, (6) the kernels' launch counts in the proving runs of
 phases 4 and 5, (7) the K6 tool: K6 (tensor-core Montgomery product)
-against its plain version and K1 fq at 2^17 lanes, (8) the tools path with
+against its plain version and K1 fq at 2^17 lanes, its persistent grid
+and tensor-core opcodes, (8) the tools path with
 its launch counts: the microbenchmark, whose chains are checked against
 their plain version at the shape they are timed at, and the profile of a
 warm batch (device busy share, top kernels), (9) each kernel's work, bound
 and share of the bound. Times are CUDA-event times of calls run back
-to back (profiling.device_ms); the byte-bound K1 and K4 are timed on
-rotating copies of their tensors that together exceed L2 (l2_cold).
+to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
+calls each move 25-50 MB, are timed on rotating copies of their tensors
+that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
 Any failed check raises, so the script exits non-zero. It imports no JAX.
 The line before the last is the kernel JSON, the last line the device JSON.
 """
@@ -32,8 +36,6 @@ The line before the last is the kernel JSON, the last line the device JSON.
 from __future__ import annotations
 
 import argparse
-import collections
-import itertools
 import json
 import os
 import subprocess
@@ -123,28 +125,6 @@ def on_card(arr: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-
-
-L2_ROTATION_BYTES = 400 << 20  # 8x the H100's 50 MB L2
-
-
-def l2_cold(call, *inputs):
-    """A call of call(*inputs) on rotating copies of the inputs, as many as
-    hold L2_ROTATION_BYTES together, with the last outputs kept alive so
-    that they rotate too: each call reads and writes addresses that the
-    calls just before it have pushed out of L2, so a byte-bound kernel
-    reads its time against HBM, not against L2."""
-    nbytes = sum(t.numel() * t.element_size() for t in inputs)
-    n = max(2, -(-L2_ROTATION_BYTES // nbytes))
-    copies = [[t.clone() for t in inputs] for _ in range(n)]
-    held = collections.deque(maxlen=n)
-    step = itertools.count()
-
-    def cold():
-        held.append(call(*copies[next(step) % n]))
-        return held[-1]
-
-    return cold
 
 
 class KernelChecks:
@@ -411,11 +391,55 @@ def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict) -> None:
                                                          cidx, empty, threads)))
 
 
+SWEEP_TAIL = (512, 1024, 2048)  # K5's chunk sizes
+
+
+def phase_tail_sweep(x: torch.Tensor, root: int) -> None:
+    """K5's chunk P: at each P, both tail calls of the lift (DIF with the
+    table, DIT without) and the other two, bit for bit against the plain
+    version at that P; the kernels' occupancy; each call and the whole
+    coset_lift_bn timed L2-cold, and each P's lift equal to P = 512's."""
+    from zerokit_tpu_torch.ff import _cuda
+    from zerokit_tpu_torch.ff import ntt_kernels as nk
+    from zerokit_tpu_torch.runtime.profiling import ChipSpec, device_ms, kernel_bound, l2_cold
+
+    chip = ChipSpec.from_device(torch.cuda.current_device())
+    _, rows, n = x.shape
+    log(f"  K5 chunk sweep (kernel ms by device_ms over 10 calls, L2-cold; lift over 3; "
+        f"{chip.label()}):")
+    ref = nk.coset_lift_bn(x, root, SWEEP_TAIL[0])
+    for p in SWEEP_TAIL:
+        parts = []
+        for direction, fused in (("dif", True), ("dit", False), ("dif", False), ("dit", True)):
+            inverse = direction == "dif"
+            tw = nk._tail_tw(n, inverse, "cuda", p)
+            table = nk._coset_table(n, root, "cuda") if fused else None
+            err = max_abs_err(nk.ntt_tail(x, tw, table, direction, p),
+                              nk.ntt_tail_plain(x, tw, table, direction, p))
+            if err != 0:
+                raise AssertionError(f"ntt_tail {direction} P={p} table={fused} disagrees with "
+                                     "its plain version")
+            ms = device_ms(l2_cold(lambda x: nk.ntt_tail(x, tw, table, direction, p), x))
+            bound = kernel_bound("K5", chip, rows=rows, n=n, p=p, table=fused)[0] * 1e3
+            blocks = _cuda.occupancy("zk_ntt_tail_occupancy", int(inverse), int(fused), p)
+            parts.append(f"{direction}{'+table' if fused else ''} {ms:.4f} ms "
+                         f"({bound / ms:.1%} of {bound:.4f}), {blocks} blocks/SM")
+        lift = nk.coset_lift_bn(x, root, p)
+        if not torch.equal(lift, ref):
+            raise AssertionError(f"coset_lift_bn P={p} differs from P={SWEEP_TAIL[0]}")
+        ms = device_ms(l2_cold(lambda x: nk.coset_lift_bn(x, root, p), x), 3)
+        bound = kernel_bound("K4+K5", chip, rows=rows, n=n, p=p)[0] * 1e3
+        cross = 2 * max(0, n.bit_length() - 1 - (min(n, p).bit_length() - 1))
+        log(f"    P={p}: " + "; ".join(parts) + f"; coset_lift_bn {ms:.4f} ms "
+            f"({bound / ms:.1%} of {bound:.4f}, {cross} K4 + 2 K5 launches)")
+
+
 def phase_kernels(rng, prover) -> KernelChecks:
     from zerokit_tpu_torch.constants import Q, R
     from zerokit_tpu_torch.ff import field_kernels as fk
     from zerokit_tpu_torch.ff import ntt_kernels as nk
     from zerokit_tpu_torch.groth16 import ntt as ntt_host
+    from zerokit_tpu_torch.runtime.profiling import l2_cold
 
     checks = KernelChecks()
     shapes = main_path_shapes(prover)
@@ -469,15 +493,19 @@ def phase_kernels(rng, prover) -> KernelChecks:
         tail_tw = nk._tail_tw(n_dom, inverse, "cuda")
         for table in (nk._coset_table(n_dom, root, "cuda"), None):
             fused = "with" if table is not None else "without"
-            checks.run("K5", f"ntt_tail {direction} {fused} table, (16, {rows_3b}, {n_dom})",
+            checks.run("K5", f"ntt_tail {direction} {fused} table, P={nk.TAIL}, "
+                       f"(16, {rows_3b}, {n_dom})",
                        lambda: nk.ntt_tail(x, tail_tw, table, direction),
                        lambda: nk.ntt_tail_plain(x, tail_tw, table, direction),
-                       {"rows": rows_3b, "n": n_dom, "table": table is not None,
-                        "dif": direction == "dif"})
-    checks.run("K4+K5", f"coset_lift_bn, (16, {rows_3b}, {n_dom})",
+                       {"rows": rows_3b, "n": n_dom, "p": nk.TAIL, "table": table is not None,
+                        "dif": direction == "dif"},
+                       cold=l2_cold(lambda x: nk.ntt_tail(x, tail_tw, table, direction), x))
+    checks.run("K4+K5", f"coset_lift_bn, P={nk.TAIL}, (16, {rows_3b}, {n_dom})",
                lambda: nk.coset_lift_bn(x, root),
                lambda: ntt_host.coset_lift(x.transpose(1, 2), root).transpose(1, 2),
-               {"rows": rows_3b, "n": n_dom}, reps=3)
+               {"rows": rows_3b, "n": n_dom, "p": nk.TAIL}, reps=3,
+               cold=l2_cold(lambda x: nk.coset_lift_bn(x, root), x))
+    phase_tail_sweep(x, root)
     return checks
 
 
@@ -542,7 +570,9 @@ def check_lane0(prover):
 
 def phase_tool_kernels(checks: KernelChecks) -> None:
     """K6 through its tool at 2^17 lanes: against its plain version and K1
-    fq bit for bit, and timed; its tensor-core instructions in the SASS.
+    fq bit for bit, both timed L2-cold (L2-warm beside); its persistent
+    grid's occupancy and its tensor-core instructions (IMMA or GMMA) in the
+    SASS.
     The microbenchmark chains' SASS (the chains are held against their
     plain version at their timed shape inside the tool, phase 8)."""
     from zerokit_tpu_torch.ff import _cuda
@@ -552,13 +582,19 @@ def phase_tool_kernels(checks: KernelChecks) -> None:
     n6 = 1 << 17
     rep = tc.main(n6)
     checks.record("K6", f"mont_mul_tc fq, {n6} lanes", 0, rep["k6_ms"], rep["plain_ms"],
-                  {"lanes": n6})
+                  {"lanes": n6}, "L2-cold, rotating copies")
+    log(f"    L2-warm: K6 {rep['k6_warm_ms']:.4f} ms; K1 fq at {n6} lanes {rep['k1_ms']:.4f} ms "
+        f"L2-cold, {rep['k1_warm_ms']:.4f} ms L2-warm")
+    blocks = _cuda.occupancy("zk_mont_mul_tc_occupancy")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"  K6: persistent grid of {blocks} blocks/SM x {sms} SMs = {blocks * sms} blocks of "
+        f"4 warps over {-(-n6 // 32)} 32-lane tiles")
     sass = _cuda.sass_opcodes("mont_tc_kernel")
-    imma = {op: c for op, c in sass.items() if op.startswith("IMMA")}
-    log(f"  SASS of mont_tc_kernel (cuobjdump -sass): {imma}, "
+    tensor = {op: c for op, c in sass.items() if op.startswith("IMMA") or "GMMA" in op}
+    log(f"  SASS of mont_tc_kernel (cuobjdump -sass): {tensor}, "
         f"IMAD* {sum(c for op, c in sass.items() if op.startswith('IMAD'))}")
-    if not imma:
-        raise AssertionError("mont_tc_kernel has no IMMA (tensor-core) instruction")
+    if not tensor:
+        raise AssertionError("mont_tc_kernel has no tensor-core instruction (IMMA or GMMA)")
     for op in mb.OPS:
         ops = _cuda.sass_opcodes(f"chain_kernelILi{mb.OPS[op]}E")
         log(f"  SASS of chain_kernel<{mb.OPS[op]}> ({op}): {dict(ops.most_common(6))}")

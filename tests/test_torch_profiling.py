@@ -103,13 +103,29 @@ def test_kernel_work_hand_computed():
         192 * 512 * 42 * 264, 192 * 512 * 192 * 4)
     assert prof.kernel_work("K4", rows=48, n=8192, m=4096) == (
         48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
-    assert prof.kernel_work("K5", rows=48, n=8192, table=True) == (
-        48 * 16 * (9 * 256 + 512) * 264, (2 * 48 * 8192 + 512 + 8192) * 64)
     assert prof.kernel_work("K6", lanes=1 << 17) == ((1 << 17) * 128, 3 * 64 * (1 << 17) + 3072)
     assert prof.tensor_ops("K6", lanes=4) == 4 * 2 * 32 * 96
     assert prof.tensor_ops("K1", lanes=4) == 0
     with pytest.raises(ValueError):
         prof.kernel_work("K7", lanes=1)
+
+
+# K5's first radix-4 group skips its multiplies by 1: stage m = 1 at
+# P = 512 (256 butterflies a chunk), m = 1, 2 at 1024 (512 + 256), m = 1 at
+# 2048 (1024)
+@pytest.mark.parametrize("p,skipped", [(512, 256), (1024, 768), (2048, 1024)])
+def test_kernel_work_tail(p, skipped):
+    stages = p.bit_length() - 1
+    assert prof.tail_skipped(p) == skipped
+    assert prof.kernel_work("K5", rows=48, n=8192, p=p, table=True) == (
+        48 * (8192 // p) * (stages * p // 2 - skipped + p) * 264,
+        (2 * 48 * 8192 + p + 8192) * 64)
+    assert prof.kernel_work("K5", rows=48, n=8192, p=p)[0] == (
+        48 * (8192 // p) * (stages * p // 2 - skipped) * 264)
+    # the lift: 13 stages each way and the table, less both tails' skips
+    assert prof.kernel_work("K4+K5", rows=48, n=8192, p=p) == (
+        48 * (8192 * 13 + 8192 - 2 * (8192 // p) * skipped) * 264,
+        (2 * 48 * 8192 + 3 * 8192) * 64)
 
 
 def test_kernel_bound_hand_computed():

@@ -42,7 +42,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# entry point -> argument types (the stream is the last pointer)
+_PI = ctypes.POINTER(ctypes.c_int)
+# entry point -> argument types (a launch takes the stream as its last pointer;
+# an occupancy query ends with the int it writes)
 _SIGNATURES = {
     "zk_mont_mul": (_I, _P, _P, _P, _LL, _P),
     "zk_ec_op": (_I, _I, _P, _P, _P, _LL, _I, _P),
@@ -51,7 +53,9 @@ _SIGNATURES = {
     "zk_ec_scan_excl": (_I, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _P),
     "zk_ntt_stage": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
     "zk_ntt_tail": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
+    "zk_ntt_tail_occupancy": (_I, _I, _LL, _PI),
     "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),
+    "zk_mont_mul_tc_occupancy": (_PI,),
     "zk_chain": (_I, _P, _P, _P, _LL, _I, _P),
 }
 
@@ -187,6 +191,18 @@ def launch(name: str, *args) -> None:
     if rc != 0:
         msg = handle.zk_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def occupancy(name: str, *args) -> int:
+    """Blocks per SM of a kernel at the launch its wrapper makes, from the
+    library's occupancy entry point `name` (cudaOccupancyMaxActiveBlocks-
+    PerMultiprocessor, with the launch's threads and shared memory)."""
+    blocks = ctypes.c_int(0)
+    handle = lib()
+    rc = getattr(handle, name)(*args, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} ({handle.zk_error_string(rc).decode()})")
+    return blocks.value
 
 
 _SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]\s+)?([A-Z][A-Z0-9_.]*)")

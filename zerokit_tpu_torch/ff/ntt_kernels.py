@@ -7,9 +7,14 @@ results equal groth16/ntt.py's:
   * ntt_stage (K4, csrc/ntt_kernels.cu `ntt_stage<Dir>`): one radix-2 stage
     at half-size m. DIF (lo+hi, (lo-hi)*w); DIT (lo+w*hi, lo-w*hi).
   * ntt_tail (K5, `ntt_tail<Dir,FuseTable>`): every stage m < P inside
-    P-point chunks, P = min(n, 512), optionally fused with a pointwise
-    table multiply after the DIF stages or before the DIT stages.
-  * dif / dit / coset_lift_bn: the full passes built from them.
+    P-point chunks, P = min(n, p) for a chunk p of 2 .. 2048 (TAIL by
+    default), optionally fused with a pointwise table multiply after the DIF
+    stages or before the DIT stages.
+  * dif / dit / coset_lift_bn: the full passes built from them: the stages
+    m >= P run as K4, the rest in one K5 call.
+
+The chunk is an argument of every wrapper so that tests and chip_smoke.py
+can run each chunk size; the proving path uses TAIL.
 
 Every power-of-two n and every B are taken. A CUDA tensor launches the
 kernels (or raises); a CPU tensor takes the `*_plain` versions, which run
@@ -31,7 +36,9 @@ from .field import FrPlain
 from .field_kernels import check_limbs, on_cuda
 
 L = NUM_LIMBS
-TAIL = 512  # largest chunk the tail kernel keeps in shared memory
+TAIL = 1024  # the tail's chunk: the fastest lift of 512, 1024, 2048 on the H100 (PERF.md)
+MAX_TAIL = 2048  # the largest chunk the tail kernel takes (csrc kMaxTail)
+TAIL_LR = 2  # log2 of the values a tail thread holds (csrc kLR: radix-4 groups)
 launches = {"ntt_stage": 0, "ntt_tail": 0}
 
 
@@ -40,8 +47,11 @@ def reset_launches() -> None:
         launches[key] = 0
 
 
-def tail_size(n: int) -> int:
-    return min(n, TAIL)
+def tail_size(n: int, p: int = TAIL) -> int:
+    """The tail's chunk at domain size n for a chunk of p points."""
+    if p < 2 or p > MAX_TAIL or p & (p - 1):
+        raise ValueError(f"tail chunk must be a power of two in [2, {MAX_TAIL}], got {p}")
+    return min(n, p)
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,11 +64,12 @@ def _stage_tw(n: int, m: int, inverse: bool, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _tail_tw(n: int, inverse: bool, device: str) -> torch.Tensor:
-    """(16, P) concatenated tail twiddles: slot [m, 2m) holds stage m's."""
+def _tail_tw(n: int, inverse: bool, device: str, p: int = TAIL) -> torch.Tensor:
+    """(16, P) concatenated tail twiddles, P = tail_size(n, p): slot [m, 2m)
+    holds stage m's."""
     from ..groth16.ntt import _stage_twiddles
 
-    p = tail_size(n)
+    p = tail_size(n, p)
     tables = _stage_twiddles(n, inverse)
     out = np.zeros((L, p), dtype=np.int32)
     m = 1
@@ -121,37 +132,41 @@ def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, m: int, direction: str) -
 
 
 def ntt_tail(
-    x: torch.Tensor, tail_tw: torch.Tensor, table: Optional[torch.Tensor], direction: str
+    x: torch.Tensor, tail_tw: torch.Tensor, table: Optional[torch.Tensor], direction: str,
+    p: int = TAIL,
 ) -> torch.Tensor:
-    """All stages m = 1 .. P/2 (P = min(n, 512)) of x (16, B, n) in P-point
-    chunks; DIF runs them descending, then multiplies by table (16, n);
-    DIT multiplies first, then runs them ascending."""
+    """All stages m = 1 .. P/2 (P = tail_size(n, p)) of x (16, B, n) in
+    P-point chunks; DIF runs them descending, then multiplies by table
+    (16, n); DIT multiplies first, then runs them ascending."""
     _check_x(x)
     _, b, n = x.shape
-    p = tail_size(n)
+    size = tail_size(n, p)
     if direction not in ("dif", "dit"):
         raise ValueError(f"bad direction {direction!r}")
-    if tuple(tail_tw.shape) != (L, p):
-        raise ValueError(f"tail twiddles must be (16, {p}), got {tuple(tail_tw.shape)}")
+    if tuple(tail_tw.shape) != (L, size):
+        raise ValueError(f"tail twiddles must be (16, {size}), got {tuple(tail_tw.shape)}")
     if table is not None and tuple(table.shape) != (L, n):
         raise ValueError(f"table must be (16, {n}), got {tuple(table.shape)}")
     tensors = (x, tail_tw) if table is None else (x, tail_tw, table)
     if not on_cuda(*tensors):
-        return ntt_tail_plain(x, tail_tw, table, direction)
+        return ntt_tail_plain(x, tail_tw, table, direction, p)
     for t, name in zip(tensors, ("x", "tail_tw", "table")):
         check_limbs(t, name)
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the tail kernel's grid")
     out = torch.empty_like(x)
-    _cuda.launch("zk_ntt_tail", int(direction == "dif"), x, tail_tw, table, out, b, n, p)
+    if size >= 8 and any(t.data_ptr() % 16 for t in (x, out) + tensors[2:]):
+        raise ValueError("ntt_tail: x and table must be 16-byte aligned")
+    _cuda.launch("zk_ntt_tail", int(direction == "dif"), x, tail_tw, table, out, b, n, size)
     launches["ntt_tail"] += 1
     return out
 
 
-def ntt_tail_plain(x, tail_tw, table, direction: str) -> torch.Tensor:
-    n = x.shape[2]
-    p = tail_size(n)
-    ms = [1 << s for s in range(p.bit_length() - 1)]
+def ntt_tail_plain(x, tail_tw, table, direction: str, p: int = TAIL) -> torch.Tensor:
+    """The tail one stage at a time (the kernel's groups and its skipped
+    multiplies by 1 give the same integers)."""
+    size = tail_size(x.shape[2], p)
+    ms = [1 << s for s in range(size.bit_length() - 1)]
     if direction == "dif":
         ms = ms[::-1]
     if table is not None and direction == "dit":
@@ -168,25 +183,27 @@ def ntt_tail_plain(x, tail_tw, table, direction: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def dif(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dif(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None,
+        p: int = TAIL) -> torch.Tensor:
     """Full DIF pass on (16, B, n): natural -> bit-reversed order, then an
-    optional pointwise multiply by table (16, n)."""
+    optional pointwise multiply by table (16, n); tail chunk p."""
     n = x.shape[2]
     dev = str(x.device)
     m = n // 2
-    while m >= tail_size(n):
+    while m >= tail_size(n, p):
         x = ntt_stage(x, _stage_tw(n, m, inverse, dev), m, "dif")
         m //= 2
-    return ntt_tail(x, _tail_tw(n, inverse, dev), table, "dif")
+    return ntt_tail(x, _tail_tw(n, inverse, dev, p), table, "dif", p)
 
 
-def dit(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dit(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None,
+        p: int = TAIL) -> torch.Tensor:
     """Full DIT pass on (16, B, n): optional pointwise multiply by table,
-    then bit-reversed -> natural order."""
+    then bit-reversed -> natural order; tail chunk p."""
     n = x.shape[2]
     dev = str(x.device)
-    x = ntt_tail(x, _tail_tw(n, inverse, dev), table, "dit")
-    m = tail_size(n)
+    x = ntt_tail(x, _tail_tw(n, inverse, dev, p), table, "dit", p)
+    m = tail_size(n, p)
     while m <= n // 2:
         x = ntt_stage(x, _stage_tw(n, m, inverse, dev), m, "dit")
         m *= 2
@@ -200,12 +217,12 @@ def _coset_table(n: int, root: int, device: str) -> torch.Tensor:
     return torch.from_numpy(_coset_table_brev(n, root).astype(np.int32)).to(device)
 
 
-def coset_lift_bn(evals_bn: torch.Tensor, root: int) -> torch.Tensor:
+def coset_lift_bn(evals_bn: torch.Tensor, root: int, p: int = TAIL) -> torch.Tensor:
     """fft(distribute_powers(ifft(evals), root)) on (16, B, n): DIF with
     inverse twiddles and the bit-reversed coset table (1/n folded in) fused
-    into its tail, then DIT with forward twiddles."""
+    into its tail, then DIT with forward twiddles; tail chunk p."""
     n = evals_bn.shape[2]
     if n == 1:
         return evals_bn
     table = _coset_table(n, root, str(evals_bn.device))
-    return dit(dif(evals_bn, True, table), False)
+    return dit(dif(evals_bn, True, table, p), False, p=p)

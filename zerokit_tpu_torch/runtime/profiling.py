@@ -23,7 +23,9 @@ Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -124,6 +126,28 @@ def device_ms(fn, reps: int = 10, enqueue_s: Optional[float] = None) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+L2_ROTATION_BYTES = 400 << 20  # 8x the H100's 50 MB L2
+
+
+def l2_cold(call, *inputs):
+    """A call of call(*inputs) on rotating copies of the inputs, as many as
+    hold L2_ROTATION_BYTES together, with the last outputs kept alive so
+    that they rotate too: each call reads and writes addresses that the
+    calls just before it have pushed out of L2, so a byte-bound kernel
+    reads its time against HBM, not against L2."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs)
+    n = max(2, -(-L2_ROTATION_BYTES // nbytes))
+    copies = [[t.clone() for t in inputs] for _ in range(n)]
+    held = collections.deque(maxlen=n)
+    step = itertools.count()
+
+    def cold():
+        held.append(call(*copies[next(step) % n]))
+        return held[-1]
+
+    return cold
 
 
 def _counted_modules():
@@ -363,6 +387,19 @@ def _point_words(comps: int, coords: int) -> int:
     return LIMBS * comps * coords
 
 
+def tail_skipped(p: int) -> int:
+    """Butterflies of one P-point chunk that K5 runs without a product
+    (csrc/ntt_kernels.cu first_stages): with E = 2^LR elements a thread
+    (ff/ntt_kernels.TAIL_LR), its first register group holds stages
+    m = 1 .. 2^(r0-1), r0 = log2(P) - LR * (ceil(log2(P) / LR) - 1), and the
+    j = 0 butterflies of stage m, P / (2m) of them, multiply by 1."""
+    from ..ff.ntt_kernels import TAIL_LR
+
+    logp = p.bit_length() - 1
+    r0 = logp - TAIL_LR * (-(-logp // TAIL_LR) - 1)
+    return sum(p >> (q + 1) for q in range(r0))
+
+
 def kernel_work(key: str, **shape) -> Tuple[int, int]:
     """(32-bit multiply instructions, bytes of device memory) of one call:
     each input byte read once and each output byte written once, as stored.
@@ -389,8 +426,14 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      both kinds (the chunked coarse scan's
                                      extra adds are its design's cost).
       K4 rows, n, m                  ntt_stage on (16, rows, n), twiddles (16, m)
-      K5 rows, n[, table]            ntt_tail, chunk P = min(n, 512)
-      K4+K5 rows, n                  coset_lift_bn on (16, rows, n)
+      K5 rows, n, p[, table]         ntt_tail with chunk P = min(n, p): the
+                                     butterflies of its log2(P) stages less
+                                     those the kernel skips (tail_skipped:
+                                     the multiplies by 1 of its first
+                                     register group), plus the table's
+      K4+K5 rows, n, p               coset_lift_bn on (16, rows, n): every
+                                     stage each way and the table, less the
+                                     two tails' skipped products
       K6 lanes                       mont_mul_tc: the 512-bit product on the
                                      CUDA cores (the reduction's products
                                      are tensor_ops)
@@ -426,13 +469,14 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
     if key == "K5":
         rows, n = shape["rows"], shape["n"]
         table = bool(shape.get("table", False))
-        p = min(n, 512)
-        muls = rows * (n // p) * ((p.bit_length() - 1) * p // 2 + (p if table else 0))
+        p = min(n, shape["p"])
+        per_chunk = (p.bit_length() - 1) * p // 2 - tail_skipped(p) + (p if table else 0)
         words = (2 * rows * n + p + (n if table else 0)) * LIMBS
-        return muls * MONT_MUL_IMADS, words * w
+        return rows * (n // p) * per_chunk * MONT_MUL_IMADS, words * w
     if key == "K4+K5":  # coset_lift_bn: every DIF stage, the table, every DIT stage
         rows, n = shape["rows"], shape["n"]
-        muls = rows * (n * (n.bit_length() - 1) + n)
+        p = min(n, shape["p"])
+        muls = rows * (n * (n.bit_length() - 1) + n - 2 * (n // p) * tail_skipped(p))
         # x in, h out; the table and each direction's twiddles (n words each)
         return muls * MONT_MUL_IMADS, (2 * rows * n + 3 * n) * LIMBS * w
     if key == "K6":
