@@ -15,17 +15,27 @@ the inputs hold edge values of the lazy field core (sums of exactly p,
 (p-1)^2, values just above p - 2^32); the sweeps of K2's block size, the
 fine scan's block size, the coarse scan's threads per lane and K5's chunk
 P (each P's tail calls against the plain version at that P, its
-occupancy, and each P's whole coset lift, equal to P = 512's), (4) a batch
-of 16 depth-20 RLN proofs through Groth16Prover.prove_batch with pairing
-verification and lane-0 MSMs held against the native host MSMs, (5) a
-second, warm batch, (6) the kernels' launch counts in the proving runs of
-phases 4 and 5, (7) the K6 tool: K6 (tensor-core Montgomery product)
+occupancy, and each P's whole coset lift, equal to P = 512's), (3b) the
+witness evaluator's kernels W1 (a segment's steps) and W2 (a Div group)
+against their plain versions, bit for bit, segment by segment, on both
+depth-20 graphs at 16 lanes and on a graph holding every op code with edge
+inputs (tools/witness_graphs.edge_case_graph), lane 0's assignment against
+the host interpreter's integers, and the evaluator's lane sweep (16 / 64 /
+256 lanes, each equal to the first lanes of the widest), (4) a batch of 16
+depth-20 RLN proofs through Groth16Prover.prove_batch (witnesses from W1)
+with pairing verification and lane-0 MSMs held against the native host
+MSMs, then a batch of 16 of the multi-message-id circuit (witnesses from
+W1 and W2), each with the launch counters at 0 before and read after,
+(5) a second, warm batch, (6) the kernels' launch counts in each proving
+run of phases 4 and 5 (every kernel of its path launched), (6b) one depth-20
+partial + finish proof against the full proof, (7) the K6 tool: K6 (tensor-core Montgomery product)
 against its plain version and K1 fq at 2^17 lanes, its persistent grid
 and tensor-core opcodes, (8) the tools path with
 its launch counts: the microbenchmark, whose chains are checked against
 their plain version at the shape they are timed at, and the profile of a
-warm batch (device busy share, top kernels), (9) each kernel's work, bound
-and share of the bound. Times are CUDA-event times of calls run back
+warm batch (device busy share, the witness range's device time, top
+kernels), (9) each kernel's work, bound and share of the bound (W1's ms
+and cycles a step beside). Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -510,6 +520,132 @@ def phase_kernels(rng, prover) -> KernelChecks:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the witness evaluator's kernels
+# ---------------------------------------------------------------------------
+
+MULTI_GRAPH = "tree_depth_20/multi_message_id/max_out_4"
+SWEEP_LANES = (16, 64, 256)  # the evaluator's chunk
+
+
+def load_multi():
+    """(Zkey, Graph) of the depth-20 multi-message-id RLN circuit (max_out 4)."""
+    from zerokit_tpu_torch.circuit.graph import graph_from_bytes
+    from zerokit_tpu_torch.circuit.zkey import zkey_from_bytes
+    from zerokit_tpu_torch.resources import load_resource
+
+    return (zkey_from_bytes(load_resource(f"{MULTI_GRAPH}/rln_final.arkzkey")),
+            graph_from_bytes(load_resource(f"{MULTI_GRAPH}/graph.bin"), DEPTH, 4))
+
+
+def multi_batch_inputs(rng, batch: int):
+    """random_batch_inputs for the multi-message-id circuit: four message ids
+    (1, 2, 3, 0), the first two slots used."""
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+
+    named, rs, ss = random_batch_inputs(rng, batch, DEPTH)
+    named["messageId"] = [[m] * batch for m in (1, 2, 3, 0)]
+    named["selectorUsed"] = [[u] * batch for u in (1, 1, 0, 0)]
+    return named, rs, ss
+
+
+def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -> torch.Tensor:
+    """Each segment of the graph, in order, through W1 (its steps) and W2
+    (its Divs) and through their plain versions on a copy of the same slot
+    buffer, every slot held bit for bit (the padding slots too); the
+    kernel timed by device_ms (a rerun writes the same slots again), the
+    plain version by the host clock (one call). W1's largest segment is
+    recorded first. Returns the assignment (16, n_signals, B)."""
+    from zerokit_tpu_torch.circuit import witness_kernels as wk
+    from zerokit_tpu_torch.runtime.profiling import device_ms, host_call, segment_work
+
+    buf = ev.load(inputs)
+    ref = buf.clone()
+    lanes = buf.shape[0]
+    rows = []
+    for i, (seg, cseg) in enumerate(zip(ev.segments, ev.compiled.segments)):
+        calls = []
+        if seg.sched.shape[0]:
+            args = (seg.sched, seg.write_start, seg.rich)
+            calls.append(("W1", f"witness_steps {cseg.kind} ({label} segment {i}, "
+                          f"{seg.sched.shape[0]} steps, {lanes} lanes)",
+                          lambda a=args: wk.witness_steps(buf, *a),
+                          lambda a=args: wk.witness_steps_plain(ref, *a),
+                          segment_work(cseg, lanes) | {"rich": seg.rich}))
+        if seg.div_out.numel():
+            args = (seg.div_ia, seg.div_ib, seg.div_out)
+            calls.append(("W2", f"witness_div ({label} segment {i}, {seg.div_out.numel()} Divs, "
+                          f"{lanes} lanes)", lambda a=args: wk.witness_div(buf, *a),
+                          lambda a=args: wk.witness_div_plain(ref, *a),
+                          {"divs": seg.div_out.numel(), "lanes": lanes}))
+        for key, what, kernel, plain, shape in calls:
+            _, kernel_s = host_call(kernel)
+            _, plain_s = host_call(plain)
+            torch.cuda.synchronize()
+            err = max_abs_err(buf, ref)
+            log(f"  {key} {what}: max_abs_err {err}")
+            if err != 0:
+                raise AssertionError(f"{key} {what}: kernel disagrees with its plain version")
+            rows.append((key, what, err, device_ms(kernel, 3, kernel_s), plain_s * 1e3, shape))
+    rows.sort(key=lambda r: -r[5].get("steps", 0))
+    for key, what, err, ms, plain_ms, shape in rows:
+        checks.record(key, what, err, ms, plain_ms, shape, "kernel back to back; plain: host "
+                      "clock, one call")
+    return wk.words_to_limbs(buf[:, ev.output_slots])
+
+
+def host_lane0(graph, named: dict) -> list:
+    from zerokit_tpu_torch.circuit import witness_host
+
+    return witness_host.calc_witness({k: [col[0] for col in v] for k, v in named.items()}, graph)
+
+
+def phase_witness(rng, checks: KernelChecks, graph, chip) -> None:
+    """W1 and W2 against their plain versions, bit for bit, segment by
+    segment: on the every-op edge graph (tools/witness_graphs.edge_case_graph)
+    and on both depth-20 graphs at BATCH lanes; lane 0's assignment of each
+    depth-20 graph against the host interpreter's integers; then the
+    evaluator's lane sweep (16 / 64 / 256 lanes of one input set), each
+    assignment equal to the first lanes of the widest one's."""
+    from zerokit_tpu_torch.circuit.witness_eval import WitnessEvaluator, compile_graph
+    from zerokit_tpu_torch.ff.field import FR
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+    from zerokit_tpu_torch.runtime.profiling import device_ms
+    from zerokit_tpu_torch.tools.witness_graphs import edge_case_graph
+
+    multi_graph = load_multi()[1]
+    for label, g, inputs in (("depth-20", graph, random_batch_inputs(rng, BATCH, DEPTH)[0]),
+                             ("depth-20 multi", multi_graph, multi_batch_inputs(rng, BATCH)[0])):
+        ev = WitnessEvaluator(compile_graph(g), "cuda")
+        out = witness_segments(checks, label, ev, ev.build_input_buffer(inputs, BATCH))
+        lane0 = [int(v) for v in FR.decode(out[:, :, 0].cpu())]
+        if lane0 != host_lane0(g, inputs):
+            raise AssertionError(f"{label}: lane 0's assignment differs from the host interpreter")
+        log(f"  {label}: lane 0's {len(lane0)} signals equal witness_host.calc_witness's")
+    edge, values = edge_case_graph(rng, BATCH)
+    ev = WitnessEvaluator(compile_graph(edge), "cuda")
+    witness_segments(checks, "edge graph", ev,
+                     ev.build_input_buffer({"x": [list(row) for row in values]}, BATCH))
+
+    ev = WitnessEvaluator(compile_graph(graph), "cuda")
+    log(f"  evaluator lane sweep, depth-20 graph, {ev.steps} steps (ms by device_ms over 3 "
+        f"calls; {chip.label()}):")
+    widest = max(SWEEP_LANES)
+    all_inputs = ev.build_input_buffer(random_batch_inputs(rng, widest, DEPTH)[0], widest)
+    ref = ev.evaluate_mont(all_inputs)
+    for lanes in SWEEP_LANES:
+        inputs = np.ascontiguousarray(all_inputs[:, :, :lanes])
+        if not torch.equal(ev.evaluate_mont(inputs), ref[:, :, :lanes]):
+            raise AssertionError(f"the evaluator at {lanes} lanes differs from the first "
+                                 f"{lanes} lanes at {widest}")
+        whole = device_ms(lambda: ev.evaluate_mont(inputs), 3)
+        buf = ev.load(inputs)
+        ms = device_ms(lambda: ev.run(buf), 3)
+        log(f"    {lanes} lanes: evaluate_mont {whole:.3f} ms; W1+W2 {ms:.3f} ms, "
+            f"{ms / ev.steps * 1e3:.3f} us/step, "
+            f"{ms * 1e-3 * chip.sm_clock_hz / ev.steps:.0f} cycles/step")
+
+
+# ---------------------------------------------------------------------------
 # Phases 4-6: the proving path
 # ---------------------------------------------------------------------------
 
@@ -524,21 +660,47 @@ def verify_batch(prover, proofs) -> None:
     zc = prover.last_batch["z_canon"].cpu()
     pvk = prepare_verifying_key(prover.zkey.pk.vk)
     for b, proof in enumerate(proofs):
-        if not verify_proof(pvk, proof, decode_canonical_fast(zc[:, 1:6, b])):
+        if not verify_proof(pvk, proof, decode_canonical_fast(zc[:, 1:prover.num_inputs, b])):
             raise AssertionError(f"proof {b} failed pairing verification")
     log(f"  {len(proofs)} proofs verified (pairing)")
 
 
-def prove_and_check(prover, rng, metrics) -> float:
+def prove_and_check(prover, rng, metrics, multi: bool = False) -> float:
     from zerokit_tpu_torch.groth16.prover import random_batch_inputs
 
-    named, rs, ss = random_batch_inputs(rng, BATCH, DEPTH)
+    named, rs, ss = (multi_batch_inputs(rng, BATCH) if multi
+                     else random_batch_inputs(rng, BATCH, DEPTH))
     t0 = time.perf_counter()
     proofs = prover.prove_batch(named, rs, ss, metrics=metrics)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     verify_batch(prover, proofs)
     return wall
+
+
+def phase_partial(prover, rng) -> None:
+    """One depth-20 partial + finish proof (a seeded half of the assignment
+    known) against the full proof at the same (r, s), pairing-verified."""
+    from zerokit_tpu_torch.ff.field import FrField, decode_canonical_fast
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+    from zerokit_tpu_torch.groth16.verifier import prepare_verifying_key, verify_proof
+
+    named, rs, ss = random_batch_inputs(rng, 1, DEPTH)
+    assignment = prover.full_assignments(named, 1)[:, :, :1].contiguous()
+    z = decode_canonical_fast(FrField.from_mont(assignment)[:, :, 0])
+    known = rng.random(len(z) - 1) < 0.5
+    t0 = time.perf_counter()
+    partial = prover.prove_partial([v if k else None for v, k in zip(z[1:], known)])
+    t1 = time.perf_counter()
+    proof = prover.finish_proof(partial, assignment, rs[0], ss[0])
+    t2 = time.perf_counter()
+    if proof != prover.prove_batch_with_assignment(assignment, rs, ss)[0]:
+        raise AssertionError("partial + finish proof differs from the full proof")
+    pvk = prepare_verifying_key(prover.zkey.pk.vk)
+    if not verify_proof(pvk, proof, z[1:prover.num_inputs]):
+        raise AssertionError("partial + finish proof failed pairing verification")
+    log(f"  partial ({int(known.sum())} of {len(known)} entries known) {t1 - t0:.3f} s + finish "
+        f"{t2 - t1:.3f} s: equals the full proof at the same (r, s), verified (pairing)")
 
 
 def check_lane0(prover):
@@ -643,6 +805,10 @@ def kernel_template(key: str, shape: dict):
         return f"ntt_tail_kernel<{int(shape['dif'])}, {int(shape['table'])}>("
     if key == "K6":
         return "mont_tc_kernel("
+    if key == "W1":
+        return f"witness_steps_kernel<{str(shape['rich']).lower()}>("
+    if key == "W2":
+        return "witness_div_kernel("
     return None
 
 
@@ -666,7 +832,10 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
         log(f"  {key} {what}: {imads} IMAD, {nbytes} B"
             + (f", {tops} tensor ops" if tops else "")
             + f"; bound {sec * 1e3:.4f} ms ({res}); kernel {ms:.4f} ms, "
-            f"share {sec * 1e3 / ms:.1%}; launches per warm batch {warm.get(key, 0)}")
+            f"share {sec * 1e3 / ms:.1%}; launches per warm batch {warm.get(key, 0)}"
+            + (f"; {ms / shape['steps'] * 1e3:.3f} us, "
+               f"{ms * 1e-3 * chip.sm_clock_hz / shape['steps']:.0f} cycles a step"
+               if key == "W1" else ""))
         tmpl = kernel_template(key, shape)
         if tmpl is not None and tmpl not in seen:
             seen.add(tmpl)
@@ -693,8 +862,15 @@ KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
     "K4": ("ntt_stage", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:201", "ntt_stage"),
     "K5": ("ntt_tail", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:245", "ntt_tail"),
     "K6": ("mont_mul_tc", "mont_tc.cu", "tools/mxu_mont_prototype.py:131", "mont_mul_tc"),
+    # new kernels: the JAX package's evaluator is a lax.scan, not Pallas
+    "W1": ("witness_steps", "witness_kernels.cu", "zerokit_tpu/circuit/witness_eval.py:396",
+           "witness_steps"),
+    "W2": ("witness_div", "witness_kernels.cu", "zerokit_tpu/circuit/witness_eval.py:419",
+           "witness_div"),
 }
-PROVING_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5")
+# the kernels each proving run launches: the depth-20 graph has no Div
+DEPTH20_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5", "W1")
+MULTI_PATH = DEPTH20_PATH + ("W2",)
 
 
 def main() -> int:
@@ -710,7 +886,7 @@ def main() -> int:
     from zerokit_tpu_torch.groth16.prover import Groth16Prover
     from zerokit_tpu_torch.resources import load_circuit
     from zerokit_tpu_torch.runtime import native
-    from zerokit_tpu_torch.runtime.profiling import (PipelineMetrics, launch_counts,
+    from zerokit_tpu_torch.runtime.profiling import (ChipSpec, PipelineMetrics, launch_counts,
                                                      reset_launches)
 
     name = torch.cuda.get_device_name(0)
@@ -739,9 +915,16 @@ def main() -> int:
     # 3. kernels against their plain versions -------------------------------
     log("[3] kernels against their plain versions, on the card")
     checks = phase_kernels(rng, prover)
+    chip = ChipSpec.from_device(torch.cuda.current_device())
+    log("[3b] the witness evaluator's kernels W1, W2 against their plain versions, on the card")
+    phase_witness(rng, checks, graph, chip)
+    multi_prover = Groth16Prover(*load_multi(), device="cuda")
+    if prover.evaluator is None or multi_prover.evaluator is None:
+        raise AssertionError("a depth-20 graph is not on the device witness evaluator")
 
     # 4. the slice --------------------------------------------------------
-    log(f"[4] depth-{DEPTH} batch of {BATCH} through Groth16Prover.prove_batch")
+    log(f"[4] depth-{DEPTH} batch of {BATCH} through Groth16Prover.prove_batch, then one of the "
+        f"multi-message-id circuit ({MULTI_GRAPH})")
     native.ensure_loaded(log)
     reset_launches()
     m1 = PipelineMetrics()
@@ -749,6 +932,11 @@ def main() -> int:
     counts = launch_counts()
     log(f"  first batch (window tables built inside): {wall1:.3f} s; stages {m1.dumps()}")
     check_lane0(prover)
+    reset_launches()
+    mm = PipelineMetrics()
+    wall_m = prove_and_check(multi_prover, rng, mm, multi=True)
+    multi_counts = launch_counts()
+    log(f"  multi-message-id first batch: {wall_m:.3f} s; stages {mm.dumps()}")
 
     # 5. warm batch -------------------------------------------------------
     log("[5] second (warm) batch")
@@ -760,12 +948,20 @@ def main() -> int:
         f"stages {m2.dumps()}")
 
     # 6. launch counts ----------------------------------------------------
-    log(f"[6] launches in the proving run of phase 4: {counts}")
+    log(f"[6] launches in phase 4's depth-20 batch: {counts}")
+    log(f"    launches in phase 4's multi-message-id batch: {multi_counts}")
     log(f"    launches in the warm batch of phase 5: {warm_counts}")
-    for key in PROVING_PATH:
-        counter = KERNELS[key][3]
-        if counts[counter] <= 0:
-            raise AssertionError(f"{key} {KERNELS[key][0]} was not launched on the proving path")
+    for which, path, batch_counts in (("depth-20", DEPTH20_PATH, counts),
+                                      ("multi-message-id", MULTI_PATH, multi_counts),
+                                      ("warm depth-20", DEPTH20_PATH, warm_counts)):
+        for key in path:
+            if batch_counts[KERNELS[key][3]] <= 0:
+                raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by the "
+                                     f"{which} batch")
+
+    # 6b. partial / finish ------------------------------------------------
+    log("[6b] partial + finish proving, depth 20")
+    phase_partial(prover, rng)
 
     # 7. the tools path's kernels against their plain versions --------------
     log("[7] the K6 tool: K6 against its plain version and K1 fq, on the card")
@@ -789,6 +985,9 @@ def main() -> int:
     scans = ranges.get("msm.fine", 0.0) + ranges.get("msm.coarse", 0.0)
     log(f"  device time of the scans' ranges (msm.fine + msm.coarse) in the traced "
         f"warm batch: {scans / 1e3:.3f} ms of {prof_rep['device_us'] / 1e3:.3f} ms; {smi}")
+    log(f"  device time of the witness range (witness.eval) in the traced warm batch: "
+        f"{ranges.get('witness.eval', 0.0) / 1e3:.3f} ms; its witness_eval stage "
+        f"{prof_rep['stages']['witness_eval']:.4f} s (profiler on); {smi}")
     ours = ("ec_scan_gather_kernel", "ec_add_gather_kernel")
     gathers = [(kname[:70], round(us / 1e3, 3), c) for kname, us, c in prof_rep["top_all"]
                if "gather" in kname and not any(o in kname for o in ours)]
@@ -799,17 +998,24 @@ def main() -> int:
 
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
-        ms, plain_ms, what, _ = checks.times[key]
+        ms, plain_ms, what, shape = checks.times[key]
         bound_ms, res = bound[key]
-        main_counts = counts if key in PROVING_PATH else tools["counts"]
+        # launches: the depth-20 batch's count, W2's from the multi-message-id
+        # batch (the depth-20 graph has no Div), K6's from the tools path
+        main_counts = (counts if key in DEPTH20_PATH else
+                       multi_counts if key in MULTI_PATH else tools["counts"])
         kernels.append({
             "name": f"{kname} ({key}: {what})", "route": "cuda",
             "source": f"zerokit_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": main_counts[counter], "launches_warm": warm_by_key[key],
+            "launches": main_counts[counter], "launches_multi": multi_counts[counter],
+            "launches_warm": warm_by_key[key],
             "max_abs_err": max(checks.errors[key]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if res == "hbm" else "operations",
             "library_ms": None,
         })
+        if key == "W1":  # the step chain, not the bound, sets W1's time
+            kernels[-1]["ms_per_step"] = ms / shape["steps"]
+            kernels[-1]["cycles_per_step"] = ms * 1e-3 * chip.sm_clock_hz / shape["steps"]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

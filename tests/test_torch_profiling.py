@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from zerokit_tpu.groth16.setup import groth16_setup
+from zerokit_tpu_torch.groth16.setup import groth16_setup
 from zerokit_tpu.runtime import profiling as jprof
 from zerokit_tpu_torch.circuit.zkey import ConstraintMatrices
 from zerokit_tpu_torch.constants import R
@@ -322,7 +322,8 @@ def test_launch_counters_cover_every_wrapper():
     prof.reset_launches()
     counts = prof.launch_counts()
     assert set(counts) == {"mont_mul", "ec_op", "ec_add_gather", "ec_scan_gather",
-                           "ec_scan_excl", "ntt_stage", "ntt_tail", "mont_mul_tc", "chain"}
+                           "ec_scan_excl", "ntt_stage", "ntt_tail", "witness_steps",
+                           "witness_div", "mont_mul_tc", "chain"}
     assert all(v == 0 for v in counts.values())
     a, b = mb.chain_inputs("add", 4, "cpu")
     mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing

@@ -17,7 +17,7 @@ from zerokit_tpu.ff.fq2 import Fq2Adapter as JaxFq2, FqAdapter as JaxFq
 from zerokit_tpu.groth16.msm_host import HostMSM
 from zerokit_tpu.groth16.prover import Groth16Prover as JaxProver
 from zerokit_tpu.groth16.qap import WitnessMapper as JaxWitnessMapper
-from zerokit_tpu.groth16.setup import groth16_setup
+from zerokit_tpu_torch.groth16.setup import groth16_setup
 from zerokit_tpu_torch.circuit.zkey import ConstraintMatrices
 from zerokit_tpu_torch.constants import NUM_LIMBS, R
 from zerokit_tpu_torch.ff import field_kernels as fk

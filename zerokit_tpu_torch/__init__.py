@@ -1,8 +1,8 @@
 """zerokit_tpu_torch: the PyTorch + CUDA port of zerokit_tpu's proving path.
 
-Batched RLN Groth16 proving over BN254 on an NVIDIA H100: host witness
-interpreter, the QAP witness map, from_mont and the five fixed-base MSMs on
-the card, then the native blinding assembly. Every kernel of that path is a
+Batched RLN Groth16 proving over BN254 on an NVIDIA H100: witness
+evaluation, the QAP witness map, from_mont and the five fixed-base MSMs on
+the card, then the native blinding assembly; partial/finish proving. Every kernel of that path is a
 hand-written CUDA kernel under csrc/ (built with nvcc at first use); each
 has a plain PyTorch version that CPU tensors take.
 

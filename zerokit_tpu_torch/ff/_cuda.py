@@ -33,6 +33,7 @@ BUILD_DIR = os.path.abspath(
 )
 SOURCES = (
     "bn254.cuh", "field_kernels.cu", "ec_scan.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu",
+    "witness_kernels.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),
     "zk_mont_mul_tc_occupancy": (_PI,),
     "zk_chain": (_I, _P, _P, _P, _LL, _I, _P),
+    "zk_witness_steps": (_I, _P, _P, _I, _LL, _LL, _I, _P),
+    "zk_witness_div": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

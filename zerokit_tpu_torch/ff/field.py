@@ -301,6 +301,9 @@ class Field:
     def is_zero(self, a):
         return (a == 0).all(dim=0)
 
+    def eq(self, a, b):
+        return (a == b).all(dim=0)
+
     def select(self, cond, a, b):
         """cond has the batch shape; limbwise where."""
         return torch.where(cond[None], a, b)
@@ -317,6 +320,18 @@ class Field:
             if i + 1 < len(bits):
                 base = self.sqr(base)
         return result
+
+    # -- canonical-form helpers (for witness bit ops) ------------------------
+
+    @staticmethod
+    def canon_shift_right_const(canon, k: int):
+        """(canonical limbs) >> k for a Python-int shift amount."""
+        limb_off, bit_off = divmod(k, LIMB_BITS)
+        zero = torch.zeros((limb_off + 1,) + canon.shape[1:], dtype=canon.dtype,
+                           device=canon.device)
+        shifted = torch.cat([canon[limb_off:], zero], dim=0)
+        hi = shifted[1 : L + 1] << (LIMB_BITS - bit_off)
+        return ((shifted[:L] >> bit_off) | hi) & LIMB_MASK
 
 
 FrField = Field(FR)

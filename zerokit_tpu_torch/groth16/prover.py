@@ -9,20 +9,29 @@ call site rln/src/protocol/proof.rs:721,766):
     g2_b = beta_2 + sum_i z_i B2_i + s delta_2
     g_c  = s g_a + r g1_b - rs delta_1 + sum_aux z L + sum h_i H_i
 
-Stages (their names are the JAX prover's): witness_eval (host interpreter),
-qap_witness_map, from_mont, msm_ab1l (a/b1/l as one FusedMSMGroup), msm_b2,
-msm_h, host_assembly (native batched blinding assembly). Everything between
-witness_eval and host_assembly runs on the prover's device.
+Stages (their names are the JAX prover's): witness_eval (the device
+evaluator, circuit/witness_eval.py; the host interpreter for a graph it
+rejects), qap_witness_map, from_mont, msm_ab1l (a/b1/l as one
+FusedMSMGroup), msm_b2, msm_h, host_assembly (native batched blinding
+assembly). Everything before host_assembly runs on the prover's device.
+
+Partial/finish (reference rln/src/partial_proof.rs:108-299): the witness is
+split by a known-mask; prove_partial precomputes the four MSMs over the
+known entries (with the alpha/beta offsets), finish_proof runs the
+complement MSMs, the h MSM and the blinding algebra.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..circuit import graph as graphmod
 from ..circuit import witness_host
+from ..circuit.witness_eval import UnsupportedGraph, WitnessEvaluator, compile_graph
 from ..constants import NUM_LIMBS, R
 from ..ff.field import FrField, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
@@ -34,6 +43,9 @@ from .qap import WitnessMapper
 Proof = Tuple[object, object, object]  # (a: G1 affine, b: G2 affine, c: G1 affine)
 
 MIN_BATCH = 4
+# lanes per witness-evaluator pass: wider batches stream through passes of
+# this width (its cost is the step chain, nearly flat in lanes; PERF.md)
+EVAL_CHUNK = 256
 
 
 def _padded_batch(b: int) -> int:
@@ -44,14 +56,41 @@ def _padded_batch(b: int) -> int:
     return n
 
 
+@dataclass
+class PartialProof:
+    """Precomputed partial proof (reference partial_proof.rs:30-43).
+
+    mask[i] refers to assignment entry i of (instance[1:] || witness),
+    i.e. the full assignment without its leading constant-1 wire.
+    """
+
+    mask: List[bool]
+    partial_pi_a: object  # G1 affine
+    partial_rho: object  # G1 affine
+    partial_pi_b: object  # G2 affine
+    partial_pi_c: object  # G1 affine
+
+
+class ProverError(ValueError):
+    pass
+
+
 class Groth16Prover:
     def __init__(self, zkey, graph: graphmod.Graph, device="cuda"):
         """zkey: a Zkey parsed by either package (the proving key carries
         over as plain ints); graph: the witness graph (None when callers
-        hand in assignments)."""
+        hand in assignments). A graph that compile_graph rejects (Pow, Idiv,
+        Mod, Shl, UnoOp::Id) is evaluated by the host interpreter; that is
+        decided here, from the graph."""
         self.zkey = zkey
         self.graph = graph
         self.device = resolve_device(device)
+        try:
+            compiled = compile_graph(graph) if graph is not None else None
+        except UnsupportedGraph:
+            compiled = None
+        self.evaluator: Optional[WitnessEvaluator] = (
+            WitnessEvaluator(compiled, self.device) if compiled is not None else None)
         pk = zkey.pk
         self.num_inputs = zkey.matrices.num_instance_variables
         self.n_wires = len(pk.a_query)
@@ -75,8 +114,36 @@ class Groth16Prover:
     # -- witness evaluation --------------------------------------------------
 
     def full_assignments(self, named_inputs: Dict[str, Sequence[Sequence[int]]], batch: int):
-        """Montgomery assignment (16, n_wires, batch) on the device, from the
-        host witness interpreter (one lane at a time)."""
+        """Montgomery assignment (16, n_wires, B) on the device. With the
+        device evaluator, each EVAL_CHUNK pass is padded to its power-of-two
+        size class (the padding lanes replicate lane 0), so B may exceed
+        batch and callers slice back down; the host interpreter gives
+        B = batch."""
+        if self.evaluator is None:
+            return self._host_assignments(named_inputs, batch)
+        if batch > EVAL_CHUNK:
+            parts = []
+            for lo in range(0, batch, EVAL_CHUNK):
+                hi = min(lo + EVAL_CHUNK, batch)
+                sub = {name: [col[lo:hi] for col in cols] for name, cols in named_inputs.items()}
+                parts.append(self.full_assignments(sub, hi - lo))
+            return torch.cat(parts, dim=2)
+        target = _padded_batch(batch)
+        if target != batch:
+            named_inputs = {
+                name: [list(col) + [col[0]] * (target - batch) for col in cols]
+                for name, cols in named_inputs.items()
+            }
+        buf = self.evaluator.build_input_buffer(named_inputs, target)
+        out = self.evaluator.evaluate_mont(buf)
+        # scrub the host input buffer (it holds identity-secret limbs): the
+        # device's copy of it completed inside evaluate_mont (a blocking
+        # copy); reference semantics: iden3calc.rs:44-57 zeroizes it
+        buf.fill(0)
+        return out
+
+    def _host_assignments(self, named_inputs, batch: int):
+        """The host witness interpreter, one lane at a time."""
         cols = []
         for b in range(batch):
             single = {k: [col[b] for col in v] for k, v in named_inputs.items()}
@@ -203,6 +270,82 @@ class Groth16Prover:
         g_c = bn254.G1.add(g_c, bn254.G1.neg(bn254.G1.mul(pk.delta_g1, r * s % R)))
         g_c = bn254.G1.add(g_c, l_pt)
         g_c = bn254.G1.add(g_c, h_pt)
+        return (g_a, g2_b, g_c)
+
+    # -- partial / finish ----------------------------------------------------
+
+    def _shifted_mask(self, mask: Sequence[bool]) -> np.ndarray:
+        """PartialProof mask (len n_wires-1) -> per-wire mask incl. wire 0."""
+        if len(mask) != self.n_wires - 1:
+            raise ProverError(
+                f"mask length {len(mask)} != {self.n_wires - 1} assignment entries"
+            )
+        return np.concatenate([[True], np.asarray(mask, dtype=bool)])
+
+    def _lanes(self, x: torch.Tensor) -> torch.Tensor:
+        """(16, n, 1) -> (16, n, _padded_batch(1)) on the device, the lanes
+        replicating lane 0."""
+        width = _padded_batch(1)
+        return x.to(self.device).expand(-1, -1, width).contiguous()
+
+    def prove_partial(self, partial_values: Sequence[Optional[int]]) -> PartialProof:
+        """partial_values: assignment entries (instance[1:] || witness), None =
+        unknown (reference PartialAssignment, partial_proof.rs:17-28)."""
+        mask = [v is not None for v in partial_values]
+        wire_mask = self._shifted_mask(mask)
+        z = [1] + [0 if v is None else int(v) for v in partial_values]
+        z_canon = self._lanes(encode_canonical_fast(z).reshape(NUM_LIMBS, self.n_wires, 1))
+        m = torch.from_numpy(wire_mask[:, None])
+        a_pt = self.msm_a.to_affine_ints(self.msm_a(z_canon, mask=m))[0]
+        b1_pt = self.msm_b1.to_affine_ints(self.msm_b1(z_canon, mask=m))[0]
+        b2_pt = self.msm_b2.to_affine_ints(self.msm_b2(z_canon, mask=m))[0]
+        aux = z_canon[:, self.num_inputs :]
+        l_pt = self.msm_l.to_affine_ints(self.msm_l(aux, mask=m[self.num_inputs :]))[0]
+        pk = self.zkey.pk
+        # alpha/beta offsets are folded in at prove_partial time
+        # (partial_proof.rs:159-170); a_query[0] (wire 0) is in the masked
+        # MSM above since wire 0 is always "known".
+        pi_a = bn254.G1.add(pk.vk.alpha_g1, a_pt)
+        rho = bn254.G1.add(pk.beta_g1, b1_pt)
+        pi_b = bn254.G2.add(pk.vk.beta_g2, b2_pt)
+        return PartialProof(
+            mask=mask, partial_pi_a=pi_a, partial_rho=rho, partial_pi_b=pi_b, partial_pi_c=l_pt
+        )
+
+    def finish_proof(self, partial: PartialProof, assignment: torch.Tensor, r: int,
+                     s: int) -> Proof:
+        """assignment: (16, n_wires, 1) Montgomery limbs of the full witness."""
+        wire_known = self._shifted_mask(partial.mask)
+        # complement mask: unknown wires only; wire 0 was covered by partial
+        m = torch.from_numpy((~wire_known)[:, None])
+        assignment = self._lanes(assignment[:, :, :1])
+        h = self.mapper.witness_map(assignment)
+        z_canon = FrField.from_mont(assignment)
+        h_canon = FrField.from_mont(h)
+        a_rem = self.msm_a.to_affine_ints(self.msm_a(z_canon, mask=m))[0]
+        b1_rem = self.msm_b1.to_affine_ints(self.msm_b1(z_canon, mask=m))[0]
+        b2_rem = self.msm_b2.to_affine_ints(self.msm_b2(z_canon, mask=m))[0]
+        aux = z_canon[:, self.num_inputs :]
+        l_rem = self.msm_l.to_affine_ints(self.msm_l(aux, mask=m[self.num_inputs :]))[0]
+        h_acc = self.msm_h.to_affine_ints(self.msm_h(h_canon))[0]
+
+        pk = self.zkey.pk
+        r %= R
+        s %= R
+        g_a = bn254.G1.add(partial.partial_pi_a, a_rem)
+        g_a = bn254.G1.add(g_a, bn254.G1.mul(pk.delta_g1, r))
+        if r != 0:
+            g1_b = bn254.G1.add(partial.partial_rho, b1_rem)
+            g1_b = bn254.G1.add(g1_b, bn254.G1.mul(pk.delta_g1, s))
+        else:
+            g1_b = None
+        g2_b = bn254.G2.add(partial.partial_pi_b, b2_rem)
+        g2_b = bn254.G2.add(g2_b, bn254.G2.mul(pk.vk.delta_g2, s))
+        l_acc = bn254.G1.add(partial.partial_pi_c, l_rem)
+        g_c = bn254.G1.add(bn254.G1.mul(g_a, s), bn254.G1.mul(g1_b, r))
+        g_c = bn254.G1.add(g_c, bn254.G1.neg(bn254.G1.mul(pk.delta_g1, r * s % R)))
+        g_c = bn254.G1.add(g_c, l_acc)
+        g_c = bn254.G1.add(g_c, h_acc)
         return (g_a, g2_b, g_c)
 
 

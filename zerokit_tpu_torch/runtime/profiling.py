@@ -18,7 +18,7 @@ Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
     from the Montgomery products a proof needs and the card's 32-bit
     integer multiply rate.
   * kernel_work() / kernel_bound(): the multiplies and bytes of one call of
-    each kernel K1-K6 and the least time the card could take for it.
+    each kernel K1-K6, W1-W2 and the least time the card could take for it.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 # 32-bit multiply instructions of one CIOS product in csrc/bn254.cuh `mul`,
@@ -49,6 +50,14 @@ EC_OP_MONT_MULS = {
     (2, "add"): 12 * 3 + 2 * 3, (2, "add_mixed"): 11 * 3 + 2 * 3,
     (2, "double"): 2 + 3 + (2 + 3) + 5 * 3,
 }
+# Montgomery products of one witness node by op code (circuit/witness_eval
+# F_*, csrc/witness_kernels.cu): Mul 1; the rich bit ops from_mont twice
+# and to_mont once, the signed comparisons from_mont twice; the rest none.
+WITNESS_OP_MONT_MULS = {1: 1, 10: 3, 11: 3, 12: 3, 13: 3, 14: 2, 15: 2, 16: 2, 17: 2}
+# one Div (W2): a square for each of the 254 bits of r - 2, a product for each
+# of its 127 set bits, and a * b^-1
+WITNESS_DIV_MONT_MULS = 254 + 127 + 1
+SLOT_BYTES = 32  # one value in the witness slot buffer: 8 words
 WORD = 4  # bytes of one stored limb (int32 word holding 16 bits)
 LIMBS = 16
 
@@ -152,11 +161,12 @@ def l2_cold(call, *inputs):
 
 def _counted_modules():
     """The modules whose kernel wrappers keep a launch counter: K1-K5 (ff),
-    K6 and the microbenchmark's chain (tools)."""
+    W1-W2 (circuit), K6 and the microbenchmark's chain (tools)."""
+    from ..circuit import witness_kernels
     from ..ff import field_kernels, ntt_kernels
     from ..tools import microbench, tc_mont_prototype
 
-    return field_kernels, ntt_kernels, tc_mont_prototype, microbench
+    return field_kernels, ntt_kernels, witness_kernels, tc_mont_prototype, microbench
 
 
 def launch_counts() -> Dict[str, int]:
@@ -264,12 +274,12 @@ def kernel_times(prof, device="cuda") -> List[Tuple[str, float, int]]:
     return sorted(((k, v[0], int(v[1])) for k, v in acc.items()), key=lambda r: -r[1])
 
 
-RANGE_PREFIXES = ("msm.", "qap.")  # the span() names of the proving stages
+RANGE_PREFIXES = ("witness.", "msm.", "qap.")  # the span() names of the proving stages
 
 
 def range_times(prof, device="cuda") -> Dict[str, float]:
     """Microseconds in which a device event ran inside each span() range
-    (msm.*, qap.*), summed over its calls. The
+    (witness.*, msm.*, qap.*), summed over its calls. The
     ranges are the profiler's annotations on the device's own timeline (on
     the card, the range as the GPU ran it); empty if it recorded none."""
     dtype = (torch.autograd.DeviceType.CUDA if torch.device(device).type == "cuda"
@@ -437,6 +447,17 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
       K6 lanes                       mont_mul_tc: the 512-bit product on the
                                      CUDA cores (the reduction's products
                                      are tensor_ops)
+      W1 ops, steps, lanes, reads    witness_steps over one segment: ops
+                                     {op code: nodes}, each node's products
+                                     (WITNESS_OP_MONT_MULS) in every lane;
+                                     the schedule (16 B a node of each step),
+                                     the `reads` slots the segment reads but
+                                     did not write and each node's value,
+                                     once per lane
+      W2 divs, lanes                 witness_div: WITNESS_DIV_MONT_MULS a Div
+                                     and lane; three int32 indices a Div,
+                                     two operands read and one value written
+                                     a Div and lane
     """
     w = WORD
     if key == "K1":
@@ -483,7 +504,34 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
         n = shape["lanes"]
         # a*b: 64 32x32->64 products; the tables are read once
         return n * 2 * 64, 3 * LIMBS * w * n + 32 * (32 + 64)
+    if key == "W1":
+        ops, lanes = shape["ops"], shape["lanes"]
+        muls = sum(WITNESS_OP_MONT_MULS.get(op, 0) * n for op, n in ops.items())
+        nodes = sum(n for op, n in ops.items() if op != 0)
+        sched = shape["steps"] * 4 * 4 * w
+        return (muls * lanes * MONT_MUL_IMADS,
+                sched + (shape["reads"] + nodes) * lanes * SLOT_BYTES)
+    if key == "W2":
+        divs, lanes = shape["divs"], shape["lanes"]
+        return (divs * lanes * WITNESS_DIV_MONT_MULS * MONT_MUL_IMADS,
+                3 * w * divs + 3 * SLOT_BYTES * divs * lanes)
     raise ValueError(f"unknown kernel {key!r}")
+
+
+def segment_work(seg, lanes: int) -> dict:
+    """kernel_work's W1 shape of one segment's steps at
+    `lanes` lanes: nodes by op code, steps, and the distinct slots its nodes
+    read (a; b unless Neg; c of TernCond) that the segment did not write.
+    seg: a circuit/witness_eval.Segment."""
+    from ..circuit.witness_eval import F_NEG, F_NOP, F_TERN
+
+    live = seg.ops != F_NOP
+    binary = live & (seg.ops != F_NEG)
+    read = np.concatenate([seg.ia[live], seg.ib[binary], seg.ic[seg.ops == F_TERN]])
+    outside = (read < seg.write_start) | (read >= seg.write_start + seg.ops.size)
+    codes, counts = np.unique(seg.ops[live], return_counts=True)
+    return {"ops": dict(zip(codes.tolist(), counts.tolist())), "steps": len(seg.ops),
+            "lanes": lanes, "reads": len(np.unique(read[outside]))}
 
 
 def tensor_ops(key: str, **shape) -> int:

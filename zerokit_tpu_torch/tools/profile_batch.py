@@ -7,9 +7,10 @@ under torch.profiler, and the report gives
 
   * the host-clock seconds of the prover's stages (each ends in a CUDA
     synchronize);
-  * the device time of the kernels launched inside each range of the MSM
-    pass (msm.digits, msm.sort, msm.fine, msm.coarse, msm.qgather,
-    msm.sumq) and of the witness map (qap.matvec, qap.coset_lift);
+  * the device time of the kernels launched inside each range: the witness
+    evaluator (witness.eval), the MSM pass (msm.digits, msm.sort, msm.fine,
+    msm.coarse, msm.qgather, msm.sumq) and the witness map (qap.matvec,
+    qap.coset_lift);
   * the ten kernels with the most device time;
   * the device busy share: the union of device-event intervals over the
     traced window;
