@@ -19,9 +19,13 @@ occupancy, and each P's whole coset lift, equal to P = 512's), (3b) the
 witness evaluator's kernels W1 (a segment's steps) and W2 (a Div group)
 against their plain versions, bit for bit, segment by segment, on both
 depth-20 graphs at 16 lanes and on a graph holding every op code with edge
-inputs (tools/witness_graphs.edge_case_graph), lane 0's assignment against
-the host interpreter's integers, and the evaluator's lane sweep (16 / 64 /
-256 lanes, each equal to the first lanes of the widest), (4) a batch of 16
+inputs (tools/witness_graphs.edge_case_graph), each W1 launch on its
+segment's slot-file plan (circuit/witness_plan.py; its registers,
+preloaded values and shared memory printed), lane 0's assignment against
+the host interpreter's integers, the evaluator's lane sweep (16 / 64 /
+256 lanes, each equal to the first lanes of the widest), and W1's sweep of
+lanes a block L against lanes (each L's slot buffer equal to L = 1's, its
+blocks per SM), (4) a batch of 16
 depth-20 RLN proofs through Groth16Prover.prove_batch (witnesses from W1)
 with pairing verification and lane-0 MSMs held against the native host
 MSMs, then a batch of 16 of the multi-message-id circuit (witnesses from
@@ -32,10 +36,14 @@ partial + finish proof against the full proof, (7) the K6 tool: K6 (tensor-core 
 against its plain version and K1 fq at 2^17 lanes, its persistent grid
 and tensor-core opcodes, (8) the tools path with
 its launch counts: the microbenchmark, whose chains are checked against
-their plain version at the shape they are timed at, and the profile of a
+their plain version at the shape they are timed at (with the latencies
+behind W1's step chain: a dependent CIOS product, the Shoup candidate and
+its halves, shared and global memory round trips, and W1's step on chains
+of one op class), and the profile of a
 warm batch (device busy share, the witness range's device time, top
 kernels), (9) each kernel's work, bound and share of the bound (W1's ms
-and cycles a step beside). Times are CUDA-event times of calls run back
+and cycles a step beside, and its share of the chain model of
+runtime/profiling.w1_chain_model on phase 8's latencies). Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -525,6 +533,7 @@ def phase_kernels(rng, prover) -> KernelChecks:
 
 MULTI_GRAPH = "tree_depth_20/multi_message_id/max_out_4"
 SWEEP_LANES = (16, 64, 256)  # the evaluator's chunk
+W1_SWEEP_L = (1, 2, 4, 8, 16, 32)  # W1's lanes a block
 
 
 def load_multi():
@@ -554,7 +563,8 @@ def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -
     buffer, every slot held bit for bit (the padding slots too); the
     kernel timed by device_ms (a rerun writes the same slots again), the
     plain version by the host clock (one call). W1's largest segment is
-    recorded first. Returns the assignment (16, n_signals, B)."""
+    recorded first, with its slot file's size. Returns the assignment
+    (16, n_signals, B)."""
     from zerokit_tpu_torch.circuit import witness_kernels as wk
     from zerokit_tpu_torch.runtime.profiling import device_ms, host_call, segment_work
 
@@ -562,15 +572,18 @@ def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -
     ref = buf.clone()
     lanes = buf.shape[0]
     rows = []
-    for i, (seg, cseg) in enumerate(zip(ev.segments, ev.compiled.segments)):
+    for i, (seg, cseg, sp) in enumerate(zip(ev.segments, ev.compiled.segments,
+                                            ev.plan.segments)):
         calls = []
-        if seg.sched.shape[0]:
-            args = (seg.sched, seg.write_start, seg.rich)
+        if seg.records.shape[0]:
             calls.append(("W1", f"witness_steps {cseg.kind} ({label} segment {i}, "
-                          f"{seg.sched.shape[0]} steps, {lanes} lanes)",
-                          lambda a=args: wk.witness_steps(buf, *a),
-                          lambda a=args: wk.witness_steps_plain(ref, *a),
-                          segment_work(cseg, lanes) | {"rich": seg.rich}))
+                          f"{seg.records.shape[0]} steps, {lanes} lanes; file: {sp.n_regs} "
+                          f"registers, {len(sp.preload)} preloaded, {ev.plan.n_consts} constants; "
+                          f"{ev.plan.smem_bytes(sp, wk.LANES_PER_BLOCK)} B a block)",
+                          lambda s=seg: ev.steps_of(buf, s),
+                          lambda s=seg: ev.steps_of(ref, s, plain=True),
+                          segment_work(cseg, lanes, sp.records, ev.plan.n_consts)
+                          | {"rich": seg.rich}))
         if seg.div_out.numel():
             args = (seg.div_ia, seg.div_ib, seg.div_out)
             calls.append(("W2", f"witness_div ({label} segment {i}, {seg.div_out.numel()} Divs, "
@@ -643,6 +656,41 @@ def phase_witness(rng, checks: KernelChecks, graph, chip) -> None:
         log(f"    {lanes} lanes: evaluate_mont {whole:.3f} ms; W1+W2 {ms:.3f} ms, "
             f"{ms / ev.steps * 1e3:.3f} us/step, "
             f"{ms * 1e-3 * chip.sm_clock_hz / ev.steps:.0f} cycles/step")
+    phase_w1_sweep(ev, all_inputs, chip)
+
+
+def phase_w1_sweep(ev, all_inputs: np.ndarray, chip) -> None:
+    """W1's lanes a block (L) against the lane count, on the depth-20
+    graph's lean segment: each L's slot buffer equal to L = 1's, its time
+    (device_ms, 3 calls), its blocks per SM (occupancy at its shared
+    memory)."""
+    from zerokit_tpu_torch.circuit import witness_kernels as wk
+    from zerokit_tpu_torch.ff import _cuda
+    from zerokit_tpu_torch.runtime.profiling import device_ms
+
+    i, seg = max(enumerate(ev.segments), key=lambda s: s[1].records.shape[0])
+    sp = ev.plan.segments[i]
+    steps = seg.records.shape[0]
+    log(f"  W1 sweep, lanes a block L x lanes, depth-20 lean segment ({steps} steps; "
+        f"kept L = {wk.LANES_PER_BLOCK}; {chip.label()}):")
+    for lanes in SWEEP_LANES:
+        base = ev.load(np.ascontiguousarray(all_inputs[:, :, :lanes]))
+        ev.run(base)  # every segment's values, so the lean segment's preload is real
+        want = None
+        for per_block in W1_SWEEP_L:
+            buf = base.clone()
+            ev.steps_of(buf, seg, lanes_per_block=per_block)
+            if want is None:
+                want = buf
+            elif not torch.equal(buf, want):
+                raise AssertionError(f"W1 with L = {per_block} differs from L = "
+                                     f"{W1_SWEEP_L[0]} at {lanes} lanes")
+            ms = device_ms(lambda: ev.steps_of(buf, seg, lanes_per_block=per_block), 3)
+            blocks = _cuda.occupancy("zk_witness_steps_occupancy", int(sp.rich),
+                                     len(sp.preload), sp.n_regs, ev.plan.n_consts, per_block)
+            log(f"    {lanes} lanes, L = {per_block}: {ms:.4f} ms, {ms / steps * 1e3:.4f} us, "
+                f"{ms * 1e-3 * chip.sm_clock_hz / steps:.0f} cycles a step; "
+                f"{ev.plan.smem_bytes(sp, per_block)} B shared a block, {blocks} blocks/SM")
 
 
 # ---------------------------------------------------------------------------
@@ -781,7 +829,8 @@ def phase_tools_path(rng, prover, chip_label: str) -> dict:
     for counter in ("mont_mul_tc", "chain"):
         if counts[counter] <= 0:
             raise AssertionError(f"{counter} was not launched on the tools path")
-    return {"counts": counts, "chip": mb_rep["chip"], "profile": rep}
+    return {"counts": counts, "chip": mb_rep["chip"], "latency": mb_rep["latency"],
+            "profile": rep}
 
 
 def kernel_template(key: str, shape: dict):
@@ -812,14 +861,17 @@ def kernel_template(key: str, shape: dict):
     return None
 
 
-def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
+def bounds(checks: KernelChecks, chip, warm: dict, profile: dict, latency: dict) -> dict:
     """Prints each check's work, bound and share of the bound, then ranks
     the kernel variants by launches x (time - bound) in the profiled warm
     batch: the variant's device time there times (1 - its share of the
     bound at the checked width), since the warm batch runs some variants at
-    other widths. Returns the bound of the check each key's JSON entry
-    times."""
-    from zerokit_tpu_torch.runtime.profiling import kernel_bound, kernel_work, tensor_ops
+    other widths. W1's checks also print the chain model
+    (profiling.w1_chain_model, from phase 8's latencies) and the share of
+    it the kernel reaches. Returns the bound of the check each key's JSON
+    entry times, and W1's chain model."""
+    from zerokit_tpu_torch.runtime.profiling import (W1_PRODUCT, kernel_bound, kernel_work,
+                                                     tensor_ops, w1_chain_model)
 
     first, ranking, seen = {}, [], set()
     warm_kernels = profile["top_all"]
@@ -836,6 +888,14 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict) -> dict:
             + (f"; {ms / shape['steps'] * 1e3:.3f} us, "
                f"{ms * 1e-3 * chip.sm_clock_hz / shape['steps']:.0f} cycles a step"
                if key == "W1" else ""))
+        if key == "W1":
+            model_ms = w1_chain_model(chip, latency, **shape) * 1e3
+            first.setdefault("W1 chain", (model_ms, "chain"))
+            log(f"    W1 chain model: {shape['steps']} steps x "
+                f"{latency['roundtrip_shared_4warps']:.1f} + ({shape['var_steps']} var x var + "
+                f"{shape['const_steps']} by a constant) x {latency[W1_PRODUCT]:.1f} cycles = "
+                f"{model_ms:.4f} ms; kernel {ms:.4f} ms, share {model_ms / ms:.1%}; "
+                f"{chip.label()}")
         tmpl = kernel_template(key, shape)
         if tmpl is not None and tmpl not in seen:
             seen.add(tmpl)
@@ -994,7 +1054,7 @@ def main() -> int:
     log(f"  torch gather kernels in the traced warm batch (name, ms, launches): "
         f"{gathers or 'none'}")
     warm_by_key = {key: warm_counts[KERNELS[key][3]] for key in KERNELS}
-    bound = bounds(checks, chip, warm_by_key, tools["profile"])
+    bound = bounds(checks, chip, warm_by_key, tools["profile"], tools["latency"])
 
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
@@ -1016,6 +1076,7 @@ def main() -> int:
         if key == "W1":  # the step chain, not the bound, sets W1's time
             kernels[-1]["ms_per_step"] = ms / shape["steps"]
             kernels[-1]["cycles_per_step"] = ms * 1e-3 * chip.sm_clock_hz / shape["steps"]
+            kernels[-1]["chain_model_ms"] = bound["W1 chain"][0]
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -323,11 +323,52 @@ def test_launch_counters_cover_every_wrapper():
     counts = prof.launch_counts()
     assert set(counts) == {"mont_mul", "ec_op", "ec_add_gather", "ec_scan_gather",
                            "ec_scan_excl", "ntt_stage", "ntt_tail", "witness_steps",
-                           "witness_div", "mont_mul_tc", "chain"}
+                           "witness_div", "mont_mul_tc", "chain", "latency", "roundtrip"}
     assert all(v == 0 for v in counts.values())
     a, b = mb.chain_inputs("add", 4, "cpu")
     mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing
-    assert prof.launch_counts()["chain"] == 0
+    x, y = mb.latency_inputs("mul_const", 2, "cpu")
+    mb.latency("mul_const", x, y, 2)
+    mb.roundtrip("shared", torch.zeros((1, 2, 4, 8), dtype=torch.int32), 2)
+    assert all(v == 0 for v in prof.launch_counts().values())
+
+
+@pytest.mark.parametrize("kind", ["mul", "mul_const", "mul_high", "mul_low"])
+def test_latency_plain_is_the_chain_of_products(kind):
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.tools import microbench as mb
+
+    x, y = mb.latency_inputs(kind, 3, "cpu")
+    got = mb.latency_plain(kind, x, y, 3)
+    for xv, yv, gv in zip(mb._ints(x), mb._ints(y), mb._ints(got)):
+        c = yv % (1 << 256)
+        step = {"mul_const": lambda v: v * c % R,
+                "mul": lambda v: v * c * pow(2 ** 256, -1, R) % R,
+                "mul_high": lambda v: v * c >> 256,
+                "mul_low": lambda v: v * c % (1 << 256)}[kind]
+        assert gv == step(step(step(xv)))
+    if kind == "mul_const":  # y's high words hold the Shoup partner
+        assert all(yv >> 256 == ((yv % (1 << 256)) << 256) // R for yv in mb._ints(y))
+
+
+def test_roundtrip_plain_rotates_the_values():
+    from zerokit_tpu_torch.tools import microbench as mb
+
+    g = torch.arange(2 * 2 * 4 * 8, dtype=torch.int32).reshape(2, 2, 4, 8)
+    got = mb.roundtrip_plain(g, 5)
+    # after 5 rounds buffer 1 holds value j - 5 (mod 4) of buffer 0, first word + 5
+    want = torch.roll(g[:, 0], 5, dims=1)
+    want[:, :, 0] += 5
+    assert torch.equal(got[:, 1], want)
+
+
+def test_w1_chain_model():
+    spec = prof.ChipSpec(sm_clock_hz=2e9)
+    lat = {"roundtrip_shared_4warps": 130.0, "mul": 800.0, "mul_const": 900.0}
+    sec = prof.w1_chain_model(spec, lat, steps=10, var_steps=4, const_steps=3)
+    # W1 multiplies by constants with the CIOS product too
+    assert prof.W1_PRODUCT == "mul"
+    assert sec == (10 * 130 + 4 * 800 + 3 * 800) / 2e9
 
 
 def test_random_batch_inputs_are_seeded_rln_inputs():

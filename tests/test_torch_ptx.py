@@ -27,18 +27,18 @@ NINV = {Q: 0xE4866389, R: 0xEFFFFFFF}
 MOD_2_256 = ("add8", "sub8")  # chains that wrap mod 2^256 by design
 
 
-def _asm(fname):
+def _asm(fname, src=SRC):
     """(instructions, operand expressions, number of outputs) of the one
-    asm statement in function `fname`."""
-    start = SRC.index(f" {fname}(")
-    j = SRC.index("asm(", start)
+    asm statement in function `fname` of the source `src`."""
+    start = src.index(f" {fname}(")
+    j = src.index("asm(", start)
     depth, k = 0, j + 3
     while True:
-        depth += {"(": 1, ")": -1}.get(SRC[k], 0)
+        depth += {"(": 1, ")": -1}.get(src[k], 0)
         if depth == 0:
             break
         k += 1
-    parts = SRC[j + 4:k].split(":")
+    parts = src[j + 4:k].split(":")
     text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', parts[0])).replace("\\n", "\n")
     text = text.replace("\\t", "")
     outs = re.findall(r'"[+=]r"\(([^)]*)\)', parts[1])
@@ -47,9 +47,10 @@ def _asm(fname):
     return instrs, outs + ins, len(outs)
 
 
-def run(fname, env):
-    """Executes fname's asm on env (operand expression -> value)."""
-    instrs, ops, nout = _asm(fname)
+def run(fname, env, src=SRC, wraps=MOD_2_256):
+    """Executes fname's asm (in the source `src`) on env (operand
+    expression -> value); only the chains in `wraps` may drop a carry."""
+    instrs, ops, nout = _asm(fname, src)
     regs = {i: env.get(e, 0) for i, e in enumerate(ops)}
     local, carry = {}, None
 
@@ -92,7 +93,7 @@ def run(fname, env):
         if "cc" in parts:
             carry = out
         else:
-            if out and fname not in MOD_2_256:
+            if out and fname not in wraps:
                 raise AssertionError(f"{fname}: {ins} drops a carry")
             carry = None
     for i, e in enumerate(ops[:nout]):

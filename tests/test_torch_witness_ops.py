@@ -22,6 +22,7 @@ from zerokit_tpu_torch.circuit import graph as gm
 from zerokit_tpu_torch.circuit import witness_eval as we
 from zerokit_tpu_torch.circuit import witness_host as wh
 from zerokit_tpu_torch.circuit import witness_kernels as wk
+from zerokit_tpu_torch.circuit import witness_plan as wp
 from zerokit_tpu_torch.constants import R
 from zerokit_tpu_torch.ff.field import FR, FrPlain, encode_canonical_fast
 from zerokit_tpu_torch.tools.witness_graphs import EDGE_VALUES, edge_case_graph
@@ -192,9 +193,13 @@ def test_wrappers_reject_slots_outside_the_buffer(kernel, slot):
     buf = torch.zeros((2, 4, 8), dtype=torch.int32)
     with pytest.raises(RuntimeError, match="must lie in"):
         if kernel == "steps":
-            sched = torch.tensor([[[we.F_ADD, 0, slot, 0]] + [[we.F_NOP, 0, 0, 0]] * 3],
-                                 dtype=torch.int32)
-            wk.witness_steps(buf, sched, 0, rich=False)
+            # one Add of the preloaded slot and constant 0 into slot 1
+            records = torch.tensor([[[we.F_ADD | wp.NO_REG << 16, 1, 0, 1]]
+                                    + [[we.F_NOP | wp.NO_REG << 16, 0, 0, -1]] * 3],
+                                   dtype=torch.int64).to(torch.int32)
+            consts = torch.zeros((1, 8), dtype=torch.int32)
+            wk.witness_steps(buf, records, torch.tensor([slot], dtype=torch.int32), 0, consts,
+                             rich=False)
         else:
             idx = [torch.tensor([v], dtype=torch.int32) for v in (1, slot, 3)]
             wk.witness_div(buf, *idx)

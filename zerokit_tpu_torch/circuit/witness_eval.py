@@ -13,9 +13,10 @@ proofs at every node instead.
     level holding Div closes a segment, and its Divs run after the
     segment's steps.
   * WitnessEvaluator: loads the constants and the inputs into the slot
-    buffer, runs each segment's steps in one launch of W1 and its Divs in
-    one launch of W2 (circuit/witness_kernels.py), and gathers the signals
-    into the (16, n_signals, B) Montgomery assignment.
+    buffer, runs each segment's steps in one launch of W1 on the segment's
+    slot-file plan (circuit/witness_plan.py, made once at construction) and
+    its Divs in one launch of W2 (circuit/witness_kernels.py), and gathers
+    the signals into the (16, n_signals, B) Montgomery assignment.
   * Pow/Idiv/Mod/Shl never occur in RLN circuits; compile_graph rejects
     graphs holding them (UnsupportedGraph) and the prover then serves such a
     graph with the exact host interpreter (witness_host.py).
@@ -37,6 +38,7 @@ from ..ff.field import FR, FrField, encode_canonical_fast, resolve_device
 from ..runtime.profiling import span
 from . import graph as g
 from . import witness_kernels as wk
+from . import witness_plan
 
 W = 4  # scan step width (nodes per step); avg level width is ~2.3
 
@@ -318,11 +320,13 @@ def build_input_buffer(
 
 @dataclass
 class DeviceSegment:
-    """A segment's schedule on the evaluator's device."""
+    """A segment's slot-file plan (circuit/witness_plan.py) on the
+    evaluator's device."""
 
     rich: bool
-    sched: torch.Tensor  # (steps, W, 4) int32: op, ia, ib, ic of each node
-    write_start: int
+    records: torch.Tensor  # (steps, W, 4) int32
+    preload: torch.Tensor  # (n_preload,) int32 slots
+    n_regs: int
     div_ia: torch.Tensor  # (n_div,) int32
     div_ib: torch.Tensor
     div_out: torch.Tensor
@@ -346,24 +350,22 @@ class WitnessEvaluator:
         if any(a.size and (a.min() < 0 or a.max() >= cg.n_slots) for a in slots):
             raise ValueError(f"a schedule names a slot outside [0, {cg.n_slots})")
 
-        # the schedule goes to the device once (~0.7 MB at depth 20)
+        # the slot-file plan goes to the device once (~0.7 MB at depth 20)
+        self.plan = plan = witness_plan.plan_slot_file(cg)
         self.segments = [
             DeviceSegment(
-                rich=seg.kind == "rich",
-                sched=on_dev(np.stack([seg.ops, seg.ia, seg.ib, seg.ic], axis=-1)
-                             .reshape(-1, W, 4)),
-                write_start=seg.write_start,
-                div_ia=on_dev(seg.div_ia), div_ib=on_dev(seg.div_ib),
+                rich=sp.rich, records=on_dev(sp.records), preload=on_dev(sp.preload),
+                n_regs=sp.n_regs, div_ia=on_dev(seg.div_ia), div_ib=on_dev(seg.div_ib),
                 div_out=on_dev(seg.div_out),
             )
-            for seg in cg.segments
+            for seg, sp in zip(cg.segments, plan.segments)
         ]
-        self.const_words = wk.limbs_to_words(on_dev(cg.const_values.astype(np.int32))[..., None])[0]
+        self.consts = on_dev(plan.const_words.view(np.int32))  # (n_consts, 8) words
         self.const_slots = on_dev(cg.const_slots, torch.int64)
         self.input_positions = on_dev(cg.input_positions, torch.int64)
         self.input_slots = on_dev(cg.input_slots, torch.int64)
         self.output_slots = on_dev(cg.output_slots, torch.int64)
-        self.steps = sum(int(s.sched.shape[0]) for s in self.segments)
+        self.steps = sum(int(s.records.shape[0]) for s in self.segments)
         self._buffers: Dict[int, torch.Tensor] = {}
 
     def build_input_buffer(
@@ -399,7 +401,7 @@ class WitnessEvaluator:
         inp = host.to(self.device, copy=True)
         buf = self.slot_buffer(batch)
         if self.const_slots.numel():
-            buf[:, self.const_slots] = self.const_words
+            buf[:, self.const_slots] = self.consts
         mont = FrField.to_mont(inp[:, self.input_positions].contiguous())
         buf[:, self.input_slots] = wk.limbs_to_words(mont)
         return buf
@@ -408,11 +410,19 @@ class WitnessEvaluator:
         """Every segment in order on the slot buffer: its steps (W1), then
         its Divs (W2), which read the steps' values."""
         for seg in self.segments:
-            if seg.sched.shape[0]:
-                wk.witness_steps(buf, seg.sched, seg.write_start, seg.rich)
+            if seg.records.shape[0]:
+                self.steps_of(buf, seg)
             if seg.div_out.numel():
                 wk.witness_div(buf, seg.div_ia, seg.div_ib, seg.div_out)
         return buf
+
+    def steps_of(self, buf: torch.Tensor, seg: DeviceSegment, plain: bool = False,
+                 lanes_per_block: int = None) -> torch.Tensor:
+        """W1 (or, with plain, its plain version) over one segment's steps."""
+        args = (buf, seg.records, seg.preload, seg.n_regs, self.consts, seg.rich)
+        if plain:
+            return wk.witness_steps_plain(*args)
+        return wk.witness_steps(*args, lanes_per_block=lanes_per_block)
 
     def evaluate_mont(self, input_buffer_canon: np.ndarray) -> torch.Tensor:
         """input_buffer_canon: (16, inputs_size, B) canonical uint32 limbs

@@ -10,21 +10,24 @@ convert.
   * witness_steps (W1, csrc/witness_kernels.cu `witness_steps<Rich>`):
     runs all the steps of one segment in one launch, in place. Replaces the
     JAX package's lax.scan over the steps (zerokit_tpu/circuit/
-    witness_eval.py `_scan_fn`). sched is the segment's (steps, W, 4) int32
-    schedule (op code, ia, ib, ic of each node); step t writes its W nodes
-    into slots write_start + t*W + w. A NOP node writes nothing.
+    witness_eval.py `_scan_fn`). It takes the segment's slot-file plan
+    (circuit/witness_plan.py): records (steps, W, 4) int32, the preload
+    slots and the register file's size, with the graph's constant table.
+    It writes to the slot buffer only the values the plan
+    marks (signals, W2's operands, later segments' values).
   * witness_div (W2, `witness_div`): every Div of one group, a * b^(p-2)
     with inv(0) = 0, in place (the JAX package's `_div_apply`).
 
-The wrappers check shapes, types, the write window and every slot index
-(field_kernels._check_index: a device-side assert on the card, no wait for
-the card).
+The wrappers check shapes, types, and every slot index and reference
+(field_kernels._check_index and W1's record check: device-side asserts on
+the card, no wait for the card); W1's wrapper raises when the plan's
+shared memory exceeds the card's (witness_plan.SlotFileTooLarge).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 `*_plain` version, which runs on any device and launches no kernel (its
 products are ff/field.mont_mul_sos through FrPlain). The plain step is the
-JAX package's `_step_candidates` on (16, W, B) limbs: each op's candidate
-for the step's nodes, selected by op code; a NOP selects its operand a.
+JAX package's `_step_candidates` on (16, nodes, B) limbs: each op's
+candidate for the step's nodes, selected by op code.
 `launches` counts kernel launches per wrapper and nothing else.
 """
 
@@ -38,10 +41,14 @@ from ..ff import _cuda
 from ..ff.field import FrPlain, _carry, _const_like, int_to_limbs
 from ..ff.field_kernels import _check_index, check_limbs, on_cuda
 from . import witness_eval as we
+from . import witness_plan as wp
 
 L = NUM_LIMBS
 launches = {"witness_steps": 0, "witness_div": 0}
 DIV_THREADS = 128
+LANES_PER_BLOCK = 2  # W1's L: lanes a block (the sweep in PERF.md)
+MAX_LANES_PER_BLOCK = 32  # W1's block: 4 warps, one a node, one lane a thread
+MAX_SMEM = 232448  # dynamic shared memory a block can have (H100)
 
 _HALF_LIMBS = int_to_limbs((R - 1) // 2)
 
@@ -190,41 +197,102 @@ def step_plain(ops: np.ndarray, a, b, c, rich: bool):
 # ---------------------------------------------------------------------------
 
 
-def witness_steps(buf: torch.Tensor, sched: torch.Tensor, write_start: int,
-                  rich: bool) -> torch.Tensor:
-    """Runs the steps of sched (steps, W, 4) on the slot buffer buf
-    (lanes, n_slots, 8) in place; returns buf."""
-    _check_index(sched[..., 1:], buf.shape[1], "witness_steps: sched slots")
-    if not on_cuda(buf, sched):
-        return witness_steps_plain(buf, sched, write_start, rich)
+def _check_steps(buf, records, preload, n_regs, consts) -> None:
+    """Every op code, reference, preload slot and global slot of a
+    segment's records inside what it names (device-side asserts on the
+    card, no wait)."""
+    n_slots = buf.shape[1]
+    n_refs = consts.shape[0] + preload.numel() + n_regs
+    if n_refs > wp.MAX_REFS:
+        raise ValueError(f"{n_refs} shared values exceed W1's 16-bit references")
+    _check_index(preload, n_slots, "witness_steps: preload slots")
+    if not records.numel():
+        return
+    r = records.to(torch.int64) & 0xFFFFFFFF
+    op, dst = r[..., 0] & 0xFFFF, r[..., 0] >> 16
+    live = op != we.F_NOP
+    refs = torch.stack([r[..., 1] & 0xFFFF, r[..., 1] >> 16, r[..., 2]], -1)
+    base = consts.shape[0] + preload.numel()
+    bad = ((op >= we.N_RICH)
+           | (live & ((refs.amax(-1) >= n_refs)
+                      | ((dst != wp.NO_REG) & ((dst < base) | (dst >= n_refs)))))
+           | (records[..., 3] < -1) | (records[..., 3] >= n_slots))
+    torch._assert_async(~bad.any(), "witness_steps: a record names a value outside the "
+                        "slot file or the slot buffer")
+
+
+def steps_smem_bytes(n_pre: int, n_regs: int, n_consts: int, per_block: int) -> int:
+    """W1's dynamic shared memory a block (csrc/witness_kernels.cu
+    steps_smem_bytes): the schedule ring, the constant table, and each
+    lane's preload area and registers."""
+    words = (wp.RING_STEPS * we.W * wp.RECORD_WORDS + n_consts * 8
+             + per_block * (n_pre + n_regs) * 8)
+    return 4 * words
+
+
+def witness_steps(buf: torch.Tensor, records: torch.Tensor, preload: torch.Tensor, n_regs: int,
+                  consts: torch.Tensor, rich: bool, lanes_per_block: int = None) -> torch.Tensor:
+    """Runs one segment's steps (circuit/witness_plan: records (steps, W, 4),
+    the preload slots, the register file's size) on the slot buffer buf
+    (lanes, n_slots, 8) in place, with the constant table consts (n_consts,
+    8) int32 words; returns buf.
+    lanes_per_block: W1's L (default LANES_PER_BLOCK)."""
+    if not on_cuda(buf, records, preload, consts):
+        _check_steps(buf, records, preload, n_regs, consts)
+        return witness_steps_plain(buf, records, preload, n_regs, consts, rich)
     _check_buffer(buf)
-    check_limbs(sched, "sched")
+    for t, name in ((records, "records"), (preload, "preload"), (consts, "consts")):
+        check_limbs(t, name)
     lanes, n_slots, _ = buf.shape
-    steps = sched.shape[0]
-    if sched.shape != (steps, we.W, 4):
-        raise ValueError(f"sched must be (steps, {we.W}, 4), got {tuple(sched.shape)}")
-    if write_start < 1 or write_start + steps * we.W > n_slots:
-        raise ValueError(f"steps write slots [{write_start}, {write_start + steps * we.W}) "
-                         f"outside the buffer's {n_slots}")
+    steps = records.shape[0]
+    if records.shape != (steps, we.W, wp.RECORD_WORDS):
+        raise ValueError(f"records must be (steps, {we.W}, {wp.RECORD_WORDS}), got "
+                         f"{tuple(records.shape)}")
+    if consts.ndim != 2 or consts.shape[1] != 8:
+        raise ValueError("consts must be (n, 8) words")
+    _check_steps(buf, records, preload, n_regs, consts)
+    block = lanes_per_block or LANES_PER_BLOCK
+    if not 1 <= block <= MAX_LANES_PER_BLOCK:
+        raise ValueError(f"W1 takes 1-{MAX_LANES_PER_BLOCK} lanes a block, got {block}")
+    smem = steps_smem_bytes(preload.numel(), n_regs, consts.shape[0], block)
+    if smem > MAX_SMEM:
+        raise wp.SlotFileTooLarge(f"W1 needs {smem} B of shared memory a block at {block} "
+                                  f"lanes a block; the card gives {MAX_SMEM}")
     if steps and lanes:
-        _cuda.launch("zk_witness_steps", int(rich), buf, sched, steps, write_start, n_slots,
-                     lanes)
+        _cuda.launch("zk_witness_steps", int(rich), buf, records, steps, preload,
+                     preload.numel(), n_regs, consts, consts.shape[0], n_slots, lanes, block)
         launches["witness_steps"] += 1
     return buf
 
 
-def witness_steps_plain(buf: torch.Tensor, sched: torch.Tensor, write_start: int,
-                        rich: bool) -> torch.Tensor:
-    """Plain version of witness_steps, on the JAX package's (16, n_slots, B)
-    limbs: per step, gather the operand rows, select each node's candidate,
-    write the step's W-slot window."""
+def witness_steps_plain(buf: torch.Tensor, records: torch.Tensor, preload: torch.Tensor,
+                        n_regs: int, consts: torch.Tensor, rich: bool) -> torch.Tensor:
+    """Plain version of witness_steps, on the JAX package's (16, ., B) limbs.
+    It keeps W1's shared memory as one (16, n_refs, B) file of each lane's
+    reference space (the constant table, the preload area copied from the
+    slot buffer, the registers) and per step gathers the operands by
+    reference, selects each node's result, and writes it to its register
+    and to its global slot."""
     x = words_to_limbs(buf)
-    s = sched.cpu().numpy()
-    idx = torch.from_numpy(s[:, :, 1:].astype(np.int64)).to(buf.device)
-    for t in range(s.shape[0]):
-        a, b, c = (x[:, idx[t, :, j]] for j in range(3))
-        start = write_start + t * we.W
-        x[:, start:start + we.W] = step_plain(s[t, :, 0], a, b, c, rich)
+    lanes = x.shape[2]
+    table = words_to_limbs(consts[None])[:, :, 0]  # (16, n_consts)
+    file = torch.cat([table[:, :, None].expand(-1, -1, lanes), x[:, preload.long()],
+                      torch.zeros((L, n_regs, lanes), dtype=x.dtype, device=x.device)], dim=1)
+    f = wp.decode(records.cpu().numpy())
+    ops = f["op"]
+    idx = torch.from_numpy(np.stack([f["a"], f["b"], f["c"]], -1)).to(buf.device)
+    for t in range(ops.shape[0]):
+        live = np.flatnonzero(ops[t] != we.F_NOP)
+        if not live.size:
+            continue
+        a, b, c = (file[:, idx[t, live, j]] for j in range(3))
+        res = step_plain(ops[t, live], a, b, c, rich)
+        dst, slot = f["dst"][t, live], f["slot"][t, live]
+        reg, glob = dst != wp.NO_REG, slot >= 0
+        if reg.any():
+            file[:, torch.from_numpy(dst[reg])] = res[:, torch.from_numpy(np.flatnonzero(reg))]
+        if glob.any():
+            x[:, torch.from_numpy(slot[glob])] = res[:, torch.from_numpy(np.flatnonzero(glob))]
     buf.copy_(limbs_to_words(x))
     return buf
 

@@ -14,14 +14,31 @@
 //   op 4  fma.rn.f32 (FFMA, on the same words read as floats)
 // Memory traffic is 12 bytes a lane against iters * kAcc steps, far below
 // the HBM rate at the iteration counts used.
+//
+// The latencies behind W1's step chain (csrc/witness_kernels.cu), each in
+// SM cycles (clock64) of one dependent chain a thread, at few lanes:
+//   latency_kernel<0>  bn254.cuh's CIOS `mul`: x <- x * y / 2^256 mod r
+//   latency_kernel<1>  fr_latency.cuh's Shoup `mul_const`: x <- x * c mod r
+//   latency_kernel<2>  its mul_high: x <- floor(x * y / 2^256)
+//   latency_kernel<3>  its mul_low: x <- x * y mod 2^256
+//   roundtrip_kernel<Mode>  a lane's four threads pass 32-byte values
+//     around through global (0) or shared (1) memory: load, add, store,
+//     __syncwarp, the memory part of one W1 step; mode 2 is mode 1 with
+//     each round's value also stored to global memory (W1's signals);
+//     mode 3 is mode 1 with the four threads in four warps and a block
+//     barrier (W1's mapping).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bn254.cuh"
+#include "fr_latency.cuh"
+
 namespace {
 
-typedef uint32_t u32;
+using zk::FrE;
+using zk::u32;
 typedef long long i64;
 
 constexpr int kThreads = 256;
@@ -70,6 +87,91 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = r;
 }
 
+template <int Kind>
+__global__ void __launch_bounds__(32)
+    latency_kernel(const u32* x0, const u32* y, u32* out, i64* cycles, int n, int iters) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  FrE x, b;
+  u32 c[8], cp[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    x.v[k] = x0[i * 8 + k];
+    b.v[k] = y[i * 16 + k];
+    c[k] = y[i * 16 + k];
+    cp[k] = y[i * 16 + 8 + k];
+  }
+  i64 t0 = clock64();
+#pragma unroll 1
+  for (int it = 0; it < iters; it++) {
+    if constexpr (Kind == 0) {
+      x = zk::mul(x, b);
+    } else if constexpr (Kind == 1) {
+      x = zk::mul_const(x, c, cp);
+    } else if constexpr (Kind == 2) {
+      zk::u32 w[8];
+      zk::mul_high(w, x.v, b.v);
+#pragma unroll
+      for (int k = 0; k < 8; k++) x.v[k] = w[k];
+    } else {
+      zk::u32 w[8];
+      zk::mul_low(w, x.v, b.v);
+#pragma unroll
+      for (int k = 0; k < 8; k++) x.v[k] = w[k];
+    }
+  }
+  if constexpr (Kind < 2) x = zk::canon(x);
+  i64 t1 = clock64();
+#pragma unroll
+  for (int k = 0; k < 8; k++) out[i * 8 + k] = x.v[k];
+  cycles[i] = t1 - t0;
+}
+
+// Thread j (modes 0-2: blockDim.x = 4, one warp; mode 3: lane 0 of warp j of
+// 4) reads value j of one buffer, adds 1 to its first word, writes it as
+// value j + 1 (mod 4) of the other, then __syncwarp (modes 0-2) or
+// __syncthreads over the 4 warps (mode 3, W1's step barrier)
+template <int Mode>
+__global__ void __launch_bounds__(128) roundtrip_kernel(u32* g, i64* cycles, int iters) {
+  constexpr bool Shared = Mode != 0;
+  __shared__ __align__(16) u32 s[2 * 4 * 8];
+  u32* base = Shared ? s : g + blockIdx.x * 64;
+  const int j = Mode == 3 ? threadIdx.x / 32 : threadIdx.x;
+  const bool active = Mode != 3 || threadIdx.x % 32 == 0;
+  if (Shared && active) {
+    for (int k = 0; k < 16; k++) s[j * 16 + k] = g[blockIdx.x * 64 + j * 16 + k];
+  }
+  __syncthreads();
+  i64 t0 = clock64();
+#pragma unroll 1
+  for (int it = 0; it < iters; it++) {
+    if (active) {
+      const uint4* src = reinterpret_cast<const uint4*>(base + (it & 1) * 32 + j * 8);
+      uint4 lo = src[0], hi = src[1];
+      lo.x += 1u;
+      uint4* dst = reinterpret_cast<uint4*>(base + (~it & 1) * 32 + ((j + 1) & 3) * 8);
+      dst[0] = lo;
+      dst[1] = hi;
+      if constexpr (Mode == 2) {
+        uint4* gd = reinterpret_cast<uint4*>(g + blockIdx.x * 64 + (~it & 1) * 32 +
+                                             ((j + 1) & 3) * 8);
+        gd[0] = lo;
+        gd[1] = hi;
+      }
+    }
+    if constexpr (Mode == 3) {
+      __syncthreads();
+    } else {
+      __syncwarp(0xfu);
+    }
+  }
+  i64 t1 = clock64();
+  if (Shared && active) {
+    for (int k = 0; k < 16; k++) g[blockIdx.x * 64 + j * 16 + k] = s[j * 16 + k];
+  }
+  if (active) cycles[blockIdx.x * 4 + j] = t1 - t0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -89,6 +191,43 @@ int zk_chain(int op, const void* a, const void* b, void* out, long long n, int i
     case 2: chain_kernel<2><<<grid, kThreads, 0, s>>>(pa, pb, po, n, iters); break;
     case 3: chain_kernel<3><<<grid, kThreads, 0, s>>>(pa, pb, po, n, iters); break;
     case 4: chain_kernel<4><<<grid, kThreads, 0, s>>>(pa, pb, po, n, iters); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x0: (n, 8) words; y: (n, 16) words (the multiplier, or c and c');
+// out: (n, 8) words; cycles: (n,) int64.
+int zk_latency(int kind, const void* x0, const void* y, void* out, void* cycles, int n, int iters,
+               void* stream) {
+  if (n < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid((unsigned)((n + 31) / 32));
+  const u32* px = (const u32*)x0;
+  const u32* py = (const u32*)y;
+  u32* po = (u32*)out;
+  i64* pc = (i64*)cycles;
+  switch (kind) {
+    case 0: latency_kernel<0><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
+    case 1: latency_kernel<1><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
+    case 2: latency_kernel<2><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
+    case 3: latency_kernel<3><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// mode: 0 global, 1 shared, 2 shared and a global store a round, 3 shared
+// across 4 warps with a block barrier; g:
+// (blocks, 2, 4, 8) words, in place; cycles: (blocks, 4) int64.
+int zk_roundtrip(int mode, void* g, void* cycles, int blocks, int iters, void* stream) {
+  if (blocks < 1 || iters < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (mode) {
+    case 0: roundtrip_kernel<0><<<blocks, 4, 0, s>>>((u32*)g, (i64*)cycles, iters); break;
+    case 1: roundtrip_kernel<1><<<blocks, 4, 0, s>>>((u32*)g, (i64*)cycles, iters); break;
+    case 2: roundtrip_kernel<2><<<blocks, 4, 0, s>>>((u32*)g, (i64*)cycles, iters); break;
+    case 3: roundtrip_kernel<3><<<blocks, 128, 0, s>>>((u32*)g, (i64*)cycles, iters); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -6,7 +6,7 @@
 // W1 witness_steps<Rich> replaces zerokit_tpu/circuit/witness_eval.py
 //    _scan_fn (the scan over one segment's steps, :395-415): ONE launch runs
 //    all the steps of a segment. Each step evaluates W = 4 nodes of one
-//    level and writes them into its own W-slot window of the slot buffer.
+//    level, on the slot-file plan of circuit/witness_plan.py.
 // W2 witness_div replaces _div_apply (:418-423): every Div of one group,
 //    a * b^(p-2), inv(0) = 0, one thread per (Div, lane). It runs after its
 //    segment's steps, whose values it reads, and before the next segment.
@@ -14,27 +14,35 @@
 // What bounds them: W1 is a chain of ~10.6K dependent steps (depth-20 RLN
 // graph) of 2-3 nodes each, a few Fr products a step, so its time is the
 // step chain's latency, nearly flat in lanes, and microseconds of bytes and
-// products against milliseconds of chain. The design follows from that:
+// products against milliseconds of chain. A step costs a memory round trip
+// (store, barrier, load) plus its slowest node. The design follows:
 //   * Lanes (proofs) never read each other's values, so a block owns a
 //     group of lanes and walks every step of the segment in a loop; no
-//     grid-wide sync and no launch per step. One lane is never split over
-//     blocks.
-//   * Thread mapping: a block is one lane, W = 4 threads, one a node, with
-//     a warp barrier (__syncwarp, which orders memory among the lane's
-//     threads) after the step's stores. One thread running a lane's W
-//     nodes itself, and up to 8 lanes a block, were slower at 16, 64 and
-//     256 lanes (PERF.md).
-//   * The slot buffer lies lane-major, (lanes, n_slots, 8 words): each
-//     operand is one 32-byte load of a lane's own row. A thread issues all
-//     loads of its step before its first product, and prefetches the next
-//     step's schedule (one 16-byte (op, ia, ib, ic) load per node) meanwhile.
-//     Loads are plain ld.global, never the read-only path: a step reads what
-//     earlier steps of the same launch stored.
+//     grid-wide sync and no launch per step.
+//   * Every operand comes from shared memory (the plan): a block-wide
+//     constant table, a per-lane preload area (inputs and the values of
+//     earlier segments and W2, copied in at launch start) and a per-lane
+//     register file that interval colouring sizes (27 values a lane for
+//     the depth-20 graph). Values read outside the launch (signals, W2's
+//     operands, later segments) also go to the (lanes, n_slots, 8-word)
+//     slot buffer, fire-and-forget; nothing reads them back in the launch.
+//     A shared round trip is 77 cycles against 339 through global memory
+//     (tools/microbench.measure_latencies, PERF.md).
+//   * Thread mapping: 4 warps a block, warp w runs node w of every step for
+//     the block's L lanes (one a thread): a warp never diverges over a
+//     step's different ops, so a step costs its slowest node, and a block
+//     barrier ends each step. (With a lane's 4 threads in one warp, its
+//     nodes' ops ran one after another.)
+//   * The schedule (16 bytes a node) streams through a shared ring of two
+//     halves that cp.async fills one half ahead, off the step chain.
 //   * Each thread dispatches on its node's op code; it does not compute all
 //     10 or 18 candidates and select, which is the XLA form of the step.
-//   * Field core: bn254.cuh's Fr (PTX carry chains, values in [0, 2p)).
-//     Its invariant holds: loads are canonical, every store canonicalises,
-//     and is_zero and equality read loaded values only. Rich ops go
+//   * Every Mul runs bn254.cuh's CIOS `mul` (PTX carry chains, 805 cycles
+//     of dependent latency); fr_latency.cuh's Shoup product by a constant
+//     measured 912 (tools/microbench.py, PERF.md), so W1 does not use it.
+//   * Field core: values in registers and in the lanes' file lie in
+//     [0, 2p); a store to the slot buffer canonicalises, and equality and
+//     the tests of zero canonicalise their operands first. Rich ops go
 //     from_mont -> canonical 8x32-bit limb op -> to_mont, as the JAX code
 //     does; tests/test_torch_witness_limbs.py models that limb code on
 //     Python integers.
@@ -48,7 +56,12 @@ using namespace zk;
 
 namespace {
 
-constexpr int kW = 4;  // nodes a step (circuit/witness_eval.W), and W1's threads a block
+constexpr int kW = 4;  // nodes a step (circuit/witness_eval.W), W1's threads a lane
+constexpr int kMaxLanes = 32;  // W1's lanes a block: a warp's threads
+constexpr int kRingSteps = 64;  // W1's schedule ring (circuit/witness_plan.RING_STEPS)
+constexpr int kRingHalf = kRingSteps / 2;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have (H100)
+constexpr unsigned kNoReg = 0xffffu;  // circuit/witness_plan.NO_REG
 constexpr int kMaxDivThreads = 256;
 
 // op codes of circuit/witness_eval.py
@@ -169,7 +182,7 @@ __device__ __forceinline__ void bitwise_fix(u32 (&d)[8]) {
   for (int i = 0; i < 8; i++) d[i] = gt ? e[i] : d[i];
 }
 
-// the rich ops: canonical operands -> result in Montgomery form
+// the rich ops: operands in [0, 2p) -> result in Montgomery form
 __device__ __noinline__ FrE rich_op(int op, FrE a, FrE b) {
   FrE one = {{1u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}};
   FrE ac = canon(mul(a, one));  // from_mont
@@ -200,42 +213,167 @@ __device__ __noinline__ FrE rich_op(int op, FrE a, FrE b) {
   return mul(d, constant(kFrR2));  // to_mont
 }
 
-// one node: loaded (canonical) operands -> its value in [0, 2p)
+// one node: operands in [0, 2p) -> its value in [0, 2p). The comparisons
+// and tests of zero make their operands canonical first (invariant 3 of
+// bn254.cuh); the rich ops do in rich_op.
 template <bool Rich>
 __device__ __forceinline__ FrE apply(int op, const FrE& a, const FrE& b, const FrE& c) {
-  switch (op) {
-    case F_MUL: return mul(a, b);
-    case F_ADD: return add(a, b);
+  switch (op) {  // (Mul and Add: the step loop runs them before this switch)
     case F_SUB: return sub(a, b);
     case F_NEG: return sub(from_bool(false), a);
-    case F_EQ: return from_bool(equal(a, b));
-    case F_NEQ: return from_bool(!equal(a, b));
-    case F_LAND: return from_bool(!is_zero(a) && !is_zero(b));
-    case F_LOR: return from_bool(!is_zero(a) || !is_zero(b));
-    case F_TERN: return is_zero(a) ? c : b;
+    case F_EQ: return from_bool(equal(canon(a), canon(b)));
+    case F_NEQ: return from_bool(!equal(canon(a), canon(b)));
+    case F_LAND: return from_bool(!is_zero(canon(a)) && !is_zero(canon(b)));
+    case F_LOR: return from_bool(!is_zero(canon(a)) || !is_zero(canon(b)));
+    case F_TERN: return is_zero(canon(a)) ? c : b;
     default: break;
   }
   if constexpr (Rich) return rich_op(op, a, b);
   return a;  // not reached: the wrapper hands a lean segment lean codes only
 }
 
-// block = one lane, thread = one node of each step
+// ---------------------------------------------------------------------------
+// W1: the shared-memory slot file (circuit/witness_plan.py)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// the records of ring chunk h (steps h * kRingHalf ..) into ring half h % 2
+__device__ __forceinline__ void fill_ring(int4* ring, const int4* rec, int h, int steps) {
+  int first = h * kRingHalf;
+  int n = max(0, min(kRingHalf, steps - first)) * kW;
+  int4* dst = ring + (h & 1) * kRingHalf * kW;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cp_async16(dst + i, rec + (i64)first * kW + i);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// A block holds L lanes (at most kMaxLanes) and kW warps: warp w runs node
+// w of every step for the block's L lanes, one lane a thread, so a warp
+// never diverges over a step's different ops and a step takes its slowest
+// node, not the sum of its nodes' ops. A block barrier ends each step.
+// Shared memory (words): the schedule ring, the constant table, then the
+// lanes' file, lane-interleaved by 16-byte half: half h of value v of lane
+// l at ((2 v + h) L + l) * 4, so a warp's loads of one value hit
+// consecutive 16-byte units. A reference r < n_consts names constant r
+// (the same address for every lane), else value r - n_consts of the lane's
+// file (preload area, then registers). File values lie in [0, 2p), like
+// values in registers; constants, preloaded values and the slot buffer
+// are canonical.
 template <bool Rich>
-__global__ void __launch_bounds__(kW)
-    witness_steps_kernel(u32* buf, const int4* __restrict__ sched, int steps, i64 write_start,
-                         i64 n_slots) {
-  u32* base = buf + (i64)blockIdx.x * n_slots * 8;
-  u32* out = base + (write_start + threadIdx.x) * 8;
-  int4 next = __ldg(sched + threadIdx.x);
-  for (int t = 0; t < steps; t++) {
-    const int4 node = next;
-    FrE a = load_slot(base + (i64)node.y * 8);
-    FrE b = load_slot(base + (i64)node.z * 8);
-    FrE c = load_slot(base + (i64)node.w * 8);
-    if (t + 1 < steps) next = __ldg(sched + (i64)(t + 1) * kW + threadIdx.x);
-    if (node.x != F_NOP) store_slot(out + (i64)t * kW * 8, apply<Rich>(node.x, a, b, c));
-    __syncwarp((1u << kW) - 1u);  // the step's stores before the next step's loads
+__global__ void __launch_bounds__(kW * 32)
+    witness_steps_kernel(u32* buf, const int4* __restrict__ rec, int steps,
+                         const int* __restrict__ preload, int n_pre, int n_regs,
+                         const u32* __restrict__ consts, int n_consts, i64 n_slots, int lanes,
+                         int per_block) {
+  extern __shared__ __align__(16) u32 smem[];
+  int4* ring = reinterpret_cast<int4*>(smem);
+  u32* sconst = smem + kRingSteps * kW * 4;
+  const int node = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int lane = blockIdx.x * per_block + l;
+  const bool live = l < per_block && lane < lanes;
+  u32* gbase = buf + (i64)(live ? lane : 0) * n_slots * 8;
+  // every thread of a warp runs its node (the branches stay warp-uniform);
+  // threads past the block's lanes read lane 0's file and store nothing
+  u32* mine = sconst + n_consts * 8 + (l < per_block ? l : 0) * 4;
+  const int half = per_block * 4;  // words from a file value's low half to its high half
+  // a reference r >= n_consts: value r - n_consts of the lane's file, at
+  // words file0 + r * 2 * half of smem (halves `half` apart)
+  const int file0 = (int)(mine - smem) - n_consts * 2 * half;
+
+  fill_ring(ring, rec, 0, steps);
+  const uint4* gc = reinterpret_cast<const uint4*>(consts);
+  for (int i = threadIdx.x; i < n_consts * 2; i += blockDim.x)
+    reinterpret_cast<uint4*>(sconst)[i] = __ldg(gc + i);
+  if (live) {  // warp w copies halves w, w + kW, ... of the lane's preload area
+    for (int i = node; i < n_pre * 2; i += kW)
+      *reinterpret_cast<uint4*>(mine + i * half) =
+          reinterpret_cast<const uint4*>(gbase + (i64)__ldg(preload + i / 2) * 8)[i % 2];
   }
+  auto load_ref = [&](u32 ref) -> FrE {
+    const bool k = ref < (u32)n_consts;
+    const u32* p = k ? sconst + ref * 8 : smem + file0 + ref * 2 * half;
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const uint4 b = *reinterpret_cast<const uint4*>(p + (k ? 4 : half));
+    return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+  };
+
+  // the first chunk of the schedule, then the next one in flight (an empty
+  // group when there is none)
+  fill_ring(ring, rec, 1, steps);
+  asm volatile("cp.async.wait_group %0;" ::"n"(1) : "memory");
+  __syncthreads();
+
+  // Per step, on the chain: operand loads, the node's op, the register
+  // write, the barrier. Off it: the next record's load, issued before the
+  // op. Chunk h + 1 of the ring is waited for in the step before its first
+  // record is read, and chunk h + 2 fetched into chunk h's half once every
+  // record of chunk h is read.
+  int4 next = ring[node];
+#pragma unroll 2  // fewer loop instructions on the step chain
+  for (int t = 0; t < steps; t++) {
+    const int4 r = next;
+    if (t + 1 < steps) next = ring[((t + 1) % kRingSteps) * kW + node];
+    if (t % kRingHalf == kRingHalf - 1 && t + 1 + kRingHalf < steps)
+      fill_ring(ring, rec, (t + 1) / kRingHalf + 1, steps);
+    const int op = r.x & 0xffff;
+    if (op != F_NOP) {
+      const FrE a = load_ref((u32)r.y & 0xffffu);
+      const FrE b = load_ref((u32)r.y >> 16);
+      FrE v;
+      if (op == F_MUL) {  // the frequent ops before apply's chain of compares and branches
+        v = mul(a, b);
+      } else if (op == F_ADD) {
+        v = add(a, b);
+      } else {
+        v = apply<Rich>(op, a, b, op == F_TERN ? load_ref((u32)r.z) : a);
+      }
+      const u32 dst = (u32)r.x >> 16;
+      if (live && dst != kNoReg) {
+        u32* p = smem + file0 + dst * 2 * half;
+        *reinterpret_cast<uint4*>(p) = make_uint4(v.v[0], v.v[1], v.v[2], v.v[3]);
+        *reinterpret_cast<uint4*>(p + half) = make_uint4(v.v[4], v.v[5], v.v[6], v.v[7]);
+      }
+      if (live && r.w >= 0) store_slot(gbase + (i64)r.w * 8, v);
+    }
+    if (t % kRingHalf == kRingHalf - 2) asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncthreads();  // the step's register writes (and a landed chunk) before the next step
+  }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+int steps_smem_bytes(int n_pre, int n_regs, int n_consts, int per_block) {
+  long long words = (long long)kRingSteps * kW * 4 + (long long)n_consts * 8 +
+                    (long long)per_block * (n_pre + n_regs) * 8;
+  return words * 4 > kMaxSmem ? -1 : (int)(words * 4);
+}
+
+template <bool Rich>
+int launch_steps(u32* buf, const int4* rec, int steps, const int* preload, int n_pre, int n_regs,
+                 const u32* consts, int n_consts, i64 n_slots, int lanes, int per_block,
+                 cudaStream_t s) {
+  int bytes = steps_smem_bytes(n_pre, n_regs, n_consts, per_block);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(witness_steps_kernel<Rich>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((lanes + per_block - 1) / per_block));
+  witness_steps_kernel<Rich><<<grid, kW * 32, bytes, s>>>(buf, rec, steps, preload, n_pre, n_regs,
+                                                          consts, n_consts, n_slots, lanes,
+                                                          per_block);
+  return (int)cudaGetLastError();
+}
+
+template <bool Rich>
+int steps_occupancy(int bytes, int* blocks) {
+  cudaError_t e = cudaFuncSetAttribute(witness_steps_kernel<Rich>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, witness_steps_kernel<Rich>, kW * 32,
+                                                      bytes);
+  return (int)e;
 }
 
 __device__ __forceinline__ FrE fermat_inv(const FrE& b) {
@@ -264,19 +402,25 @@ __global__ void __launch_bounds__(kMaxDivThreads)
 
 extern "C" {
 
-// rich: 0 lean, 1 rich segment. buf: (lanes, n_slots, 8) words; sched:
-// (steps, 4, 4) int32 (op, ia, ib, ic).
-int zk_witness_steps(int rich, void* buf, const void* sched, int steps, long long write_start,
-                     long long n_slots, int lanes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  u32* pb = (u32*)buf;
-  const int4* ps = (const int4*)sched;
-  if (rich == 0) {
-    witness_steps_kernel<false><<<lanes, kW, 0, s>>>(pb, ps, steps, write_start, n_slots);
-  } else {
-    witness_steps_kernel<true><<<lanes, kW, 0, s>>>(pb, ps, steps, write_start, n_slots);
-  }
-  return (int)cudaGetLastError();
+// rich: 0 lean, 1 rich segment. buf: (lanes, n_slots, 8) words; records:
+// (steps, 4, 4) int32 (circuit/witness_plan.py); preload: (n_pre,) slots;
+// consts: (n_consts, 8) words; per_block: L. A file that does not fit
+// kMaxSmem, or L outside [1, kMaxLanes], is an error: there is no other path.
+int zk_witness_steps(int rich, void* buf, const void* records, int steps, const void* preload,
+                     int n_pre, int n_regs, const void* consts, int n_consts, long long n_slots,
+                     int lanes, int per_block, void* stream) {
+  if (per_block < 1 || per_block > kMaxLanes) return (int)cudaErrorInvalidValue;
+  auto f = rich ? launch_steps<true> : launch_steps<false>;
+  return f((u32*)buf, (const int4*)records, steps, (const int*)preload, n_pre, n_regs,
+           (const u32*)consts, n_consts, n_slots, lanes, per_block, (cudaStream_t)stream);
+}
+
+// blocks of W1 an SM holds at this file size and L
+int zk_witness_steps_occupancy(int rich, int n_pre, int n_regs, int n_consts, int per_block,
+                               int* blocks) {
+  int bytes = steps_smem_bytes(n_pre, n_regs, n_consts, per_block);
+  if (bytes < 0 || per_block < 1 || per_block > kMaxLanes) return (int)cudaErrorInvalidValue;
+  return rich ? steps_occupancy<true>(bytes, blocks) : steps_occupancy<false>(bytes, blocks);
 }
 
 // buf: (lanes, n_slots, 8) words; ia, ib, out: (n_div,) int32 slots.

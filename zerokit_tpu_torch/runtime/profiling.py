@@ -58,6 +58,10 @@ WITNESS_OP_MONT_MULS = {1: 1, 10: 3, 11: 3, 12: 3, 13: 3, 14: 2, 15: 2, 16: 2, 1
 # of its 127 set bits, and a * b^-1
 WITNESS_DIV_MONT_MULS = 254 + 127 + 1
 SLOT_BYTES = 32  # one value in the witness slot buffer: 8 words
+# W1's product (csrc/witness_kernels.cu) by tools/microbench.PRODUCTS' name:
+# bn254.cuh's CIOS `mul`, by a constant too (Shoup's `mul_const` was slower
+# on the card, PERF.md section 6)
+W1_PRODUCT = "mul"
 WORD = 4  # bytes of one stored limb (int32 word holding 16 bits)
 LIMBS = 16
 
@@ -452,8 +456,9 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      (WITNESS_OP_MONT_MULS) in every lane;
                                      the schedule (16 B a node of each step),
                                      the `reads` slots the segment reads but
-                                     did not write and each node's value,
-                                     once per lane
+                                     did not write and each node's value
+                                     (with `stores`, those W1 stores to the
+                                     slot buffer), once per lane
       W2 divs, lanes                 witness_div: WITNESS_DIV_MONT_MULS a Div
                                      and lane; three int32 indices a Div,
                                      two operands read and one value written
@@ -509,8 +514,9 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
         muls = sum(WITNESS_OP_MONT_MULS.get(op, 0) * n for op, n in ops.items())
         nodes = sum(n for op, n in ops.items() if op != 0)
         sched = shape["steps"] * 4 * 4 * w
+        written = shape.get("stores", nodes)
         return (muls * lanes * MONT_MUL_IMADS,
-                sched + (shape["reads"] + nodes) * lanes * SLOT_BYTES)
+                sched + (shape["reads"] + written) * lanes * SLOT_BYTES)
     if key == "W2":
         divs, lanes = shape["divs"], shape["lanes"]
         return (divs * lanes * WITNESS_DIV_MONT_MULS * MONT_MUL_IMADS,
@@ -518,20 +524,47 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
     raise ValueError(f"unknown kernel {key!r}")
 
 
-def segment_work(seg, lanes: int) -> dict:
+def segment_work(seg, lanes: int, records: Optional[np.ndarray] = None,
+                 n_consts: int = 0) -> dict:
     """kernel_work's W1 shape of one segment's steps at
     `lanes` lanes: nodes by op code, steps, and the distinct slots its nodes
     read (a; b unless Neg; c of TernCond) that the segment did not write.
-    seg: a circuit/witness_eval.Segment."""
-    from ..circuit.witness_eval import F_NEG, F_NOP, F_TERN
+    seg: a circuit/witness_eval.Segment. With the segment's slot-file
+    records (circuit/witness_plan) and the constant table's size, also
+    w1_chain_model's step counts: var_steps (a variable x variable Mul, or
+    a rich op, whose products are variable x variable too), const_steps
+    (products by a constant only: a Mul with an operand in the table), and
+    the values W1 stores to the slot buffer."""
+    from ..circuit.witness_eval import F_MUL, F_NEG, F_NOP, F_TERN, N_LEAN
 
     live = seg.ops != F_NOP
     binary = live & (seg.ops != F_NEG)
     read = np.concatenate([seg.ia[live], seg.ib[binary], seg.ic[seg.ops == F_TERN]])
     outside = (read < seg.write_start) | (read >= seg.write_start + seg.ops.size)
     codes, counts = np.unique(seg.ops[live], return_counts=True)
-    return {"ops": dict(zip(codes.tolist(), counts.tolist())), "steps": len(seg.ops),
-            "lanes": lanes, "reads": len(np.unique(read[outside]))}
+    shape = {"ops": dict(zip(codes.tolist(), counts.tolist())), "steps": len(seg.ops),
+             "lanes": lanes, "reads": len(np.unique(read[outside]))}
+    if records is not None:
+        r = records.astype(np.int64) & 0xFFFFFFFF
+        op = r[..., 0] & 0xFFFF
+        by_const = (op == F_MUL) & (((r[..., 1] & 0xFFFF) < n_consts) | ((r[..., 1] >> 16) < n_consts))
+        var = (((op == F_MUL) & ~by_const) | (op >= N_LEAN)).any(axis=1)
+        const = by_const.any(axis=1) & ~var
+        shape |= {"var_steps": int(var.sum()), "const_steps": int(const.sum()),
+                  "stores": int((records[..., 3] >= 0).sum())}
+    return shape
+
+
+def w1_chain_model(chip: ChipSpec, latency: Dict[str, float], **shape) -> float:
+    """Seconds of W1's step chain over one segment (segment_work's shape
+    with records): every step one shared-memory round trip across W1's
+    four warps and their block barrier, plus one product's latency
+    (W1_PRODUCT) for each step with a product, variable x variable or by a
+    constant, from the cycle latencies that tools/microbench.
+    measure_latencies reads on the card."""
+    cycles = (shape["steps"] * latency["roundtrip_shared_4warps"]
+              + (shape["var_steps"] + shape["const_steps"]) * latency[W1_PRODUCT])
+    return cycles / chip.sm_clock_hz
 
 
 def tensor_ops(key: str, **shape) -> int:

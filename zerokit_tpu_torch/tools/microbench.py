@@ -12,7 +12,17 @@ Counterpart of tools/tpu_microbench.py. Measures on the card:
     torch.matmul for bf16 at 32768 and 2^20 rows;
   * the lane throughput of K1 fq, K2 g1 add / add_mixed / double and K6 at
     65536 lanes, each held against and timed beside its plain version on
-    the same tensors (the JAX tool's XLA comparison).
+    the same tensors (the JAX tool's XLA comparison);
+  * the latencies behind W1's step chain, in SM cycles (clock64) of one
+    dependent chain a thread at LATENCY_LANES lanes: a product by
+    bn254.cuh's CIOS `mul`, by fr_latency.cuh's Shoup `mul_const` and by
+    its two halves (mul_high, mul_low), and one step's memory round trip
+    (load, store, __syncwarp among a lane's four threads) through global
+    memory, through shared memory, through shared memory with a global
+    store beside, and through shared memory across four warps and a block
+    barrier (W1's mapping); each held against its plain version
+    (latency_plain, roundtrip_plain). Also the SM clock the chains ran at
+    (clock_hz: the mul chain's cycles over its device time).
 
 Times are CUDA-event times of calls run back to back
 (profiling.device_ms).
@@ -30,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constants import Q
+from ..constants import Q, R
 from ..ff import _cuda
 from ..ff import field_kernels as fk
 from ..ff.field import resolve_device
@@ -39,12 +49,19 @@ from . import tc_mont_prototype as tc
 
 OPS = {"imad": 0, "imad_hi": 1, "add": 2, "shift_xor": 3, "ffma": 4}
 ACC = 8  # independent accumulators per thread in csrc/microbench.cu
-launches = {"chain": 0}
+# csrc/microbench.cu latency_kernel: W1's two products, then the halves of
+# Shoup's product (mul_const's parts)
+PRODUCTS = {"mul": 0, "mul_const": 1, "mul_high": 2, "mul_low": 3}
+# roundtrip_kernel modes
+ROUNDTRIPS = {"global": 0, "shared": 1, "shared_store": 2, "shared_4warps": 3}
+LATENCY_LANES, LATENCY_ITERS = 32, 4096
+launches = {"chain": 0, "latency": 0, "roundtrip": 0}
 _MASK = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
-    launches["chain"] = 0
+    for key in launches:
+        launches[key] = 0
 
 
 def chain(op: str, a: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -124,6 +141,146 @@ def measure_chains(lanes: int = 1 << 24, iters: int = 256) -> dict:
     return rates
 
 
+def _words(values, n_words: int) -> torch.Tensor:
+    return torch.tensor([[(v >> (32 * k)) & _MASK for k in range(n_words)] for v in values],
+                        dtype=torch.int64).to(torch.int32)
+
+
+def _ints(words: torch.Tensor) -> list:
+    w = words.cpu().to(torch.int64) & _MASK
+    return [sum(int(x) << (32 * k) for k, x in enumerate(row)) for row in w]
+
+
+def latency_inputs(kind: str, n: int, device):
+    """Seeded (n, 8) words x (Montgomery values < r) and (n, 16) words y:
+    the multiplier (mul, mul_high, mul_low) or a constant c < r and its Shoup partner
+    c' = floor(c 2^256 / r) (mul_const)."""
+    rng = np.random.default_rng(17)
+    xs = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    ys = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
+    if kind == "mul_const":
+        ys = [c | (((c << 256) // R) << 256) for c in ys]
+    return _words(xs, 8).to(device), _words(ys, 16).to(device)
+
+
+def latency(kind: str, x: torch.Tensor, y: torch.Tensor, iters: int):
+    """(x after iters dependent products (n, 8) words, cycles (n,) int64)."""
+    if x.ndim != 2 or x.shape[1] != 8 or y.shape != (x.shape[0], 16):
+        raise ValueError("latency: x must be (n, 8) and y (n, 16) int32 words")
+    if not fk.on_cuda(x, y):
+        return latency_plain(kind, x, y, iters), None
+    for t, name in ((x, "x"), (y, "y")):
+        fk.check_limbs(t, name)
+    out = torch.empty_like(x)
+    cycles = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
+    _cuda.launch("zk_latency", PRODUCTS[kind], x, y, out, cycles, x.shape[0], iters)
+    launches["latency"] += 1
+    return out, cycles
+
+
+def latency_plain(kind: str, x: torch.Tensor, y: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of latency's values, on Python integers: x * y / 2^256
+    mod r (mul), x * c mod r (mul_const), floor(x * y / 2^256) (mul_high)
+    or x * y mod 2^256 (mul_low), iters times."""
+    rinv = pow(1 << 256, -1, R)
+    out = []
+    for xv, yv in zip(_ints(x), _ints(y)):
+        y0 = yv & ((1 << 256) - 1)
+        if kind in ("mul_high", "mul_low"):
+            for _ in range(iters):
+                xv = xv * y0 >> 256 if kind == "mul_high" else xv * y0 % (1 << 256)
+            out.append(xv)
+            continue
+        f = y0 * (1 if kind == "mul_const" else rinv) % R
+        out.append(xv * pow(f, iters, R) % R)
+    return _words(out, 8).to(x.device)
+
+
+def roundtrip(mode: str, g: torch.Tensor, iters: int):
+    """(g after iters rounds, cycles (blocks, 4) int64): g (blocks, 2, 4, 8)
+    words, each block's four values passed around its lane's four threads
+    through memory of the ROUNDTRIPS mode."""
+    if g.ndim != 4 or g.shape[1:] != (2, 4, 8):
+        raise ValueError("roundtrip: g must be (blocks, 2, 4, 8) int32 words")
+    if not fk.on_cuda(g):
+        return roundtrip_plain(g, iters), None
+    fk.check_limbs(g, "g")
+    out = g.clone()
+    cycles = torch.empty((g.shape[0], 4), dtype=torch.int64, device=g.device)
+    _cuda.launch("zk_roundtrip", ROUNDTRIPS[mode], out, cycles, g.shape[0], iters)
+    launches["roundtrip"] += 1
+    return out, cycles
+
+
+def roundtrip_plain(g: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of roundtrip: round i moves value j of buffer i % 2,
+    its first word plus 1, to value j + 1 (mod 4) of the other buffer."""
+    out = g.clone().to(torch.int64)
+    for it in range(iters):
+        src, dst = out[:, it & 1], out[:, 1 - (it & 1)]
+        moved = torch.roll(src, 1, dims=1)
+        moved[:, :, 0] = (moved[:, :, 0] + 1) & _MASK
+        dst.copy_(moved)
+    return (out - ((out >> 31) << 32)).to(torch.int32)
+
+
+def measure_latencies(lanes: int = LATENCY_LANES, iters: int = LATENCY_ITERS) -> dict:
+    """Cycles a dependent product of each kind and of one memory round trip,
+    the mean over the lanes' chains (one warp), each kernel first held
+    against its plain version on the tensors it is timed on."""
+    out = {}
+    for kind in PRODUCTS:
+        x, y = latency_inputs(kind, lanes, "cuda")
+        got, cycles = latency(kind, x, y, iters)
+        if not torch.equal(got, latency_plain(kind, x, y, iters)):
+            raise AssertionError(f"latency {kind}: the kernel disagrees with its plain version")
+        out[kind] = cycles.double().mean().item() / iters
+        if kind == "mul":  # the SM clock the chains ran at: cycles over device time
+            ms = device_ms(lambda: latency(kind, x, y, iters), 3)
+            out["clock_hz"] = cycles.double().max().item() / (ms * 1e-3)
+    rng = np.random.default_rng(19)
+    g = torch.from_numpy(rng.integers(0, 1 << 32, size=(4, 2, 4, 8), dtype=np.uint64)
+                         .astype(np.uint32).view(np.int32)).cuda()
+    for mode in ROUNDTRIPS:
+        got, cycles = roundtrip(mode, g, iters)
+        if not torch.equal(got, roundtrip_plain(g, iters)):
+            raise AssertionError(f"roundtrip {mode}: the kernel disagrees with its plain "
+                                 f"version")
+        out["roundtrip_" + mode] = cycles.double().mean().item() / iters
+    return out
+
+
+def measure_w1_steps(lanes: int = 16, steps: int = 4096, check_steps: int = 256) -> dict:
+    """Cycles a W1 step on chains of one op class (tools/witness_graphs.
+    chain_graph: one node a step), at `lanes` lanes: device_ms of the
+    chain's W1 launch over 3 calls, times the SM clock, over its steps.
+    Each kind's W1 is first held bit for bit against its plain version on
+    a chain of check_steps."""
+    from ..circuit.witness_eval import WitnessEvaluator, compile_graph
+    from .witness_graphs import CHAIN_KINDS, chain_graph
+
+    chip = ChipSpec.from_device(torch.cuda.current_device())
+    rng = np.random.default_rng(23)
+    out = {}
+    for kind in CHAIN_KINDS:
+        for n in (check_steps, steps):
+            ev = WitnessEvaluator(compile_graph(chain_graph(kind, n)), "cuda")
+            xs = [[int.from_bytes(rng.bytes(32), "little") % R for _ in range(lanes)]]
+            buf = ev.load(ev.build_input_buffer({"x": xs}, lanes))
+            (seg,) = ev.segments
+            if n == check_steps:
+                ref = buf.clone()
+                ev.steps_of(buf, seg)
+                ev.steps_of(ref, seg, plain=True)
+                if not torch.equal(buf, ref):
+                    raise AssertionError(f"W1 on the {kind} chain disagrees with its plain "
+                                         f"version")
+                continue
+            ms = device_ms(lambda: ev.steps_of(buf, seg), 3)
+            out[kind] = ms * 1e-3 * chip.sm_clock_hz / seg.records.shape[0]
+    return out
+
+
 def measure_tensor_cores() -> dict:
     """Operations per second (a multiply and an add each count) of the
     library matmuls at the JAX tool's shapes."""
@@ -197,6 +354,19 @@ def main() -> dict:
         print("the measured IMAD rate exceeds the derived peak: the derivation is wrong; "
               f"the measured rate is the peak; {label}", flush=True)
         chip.measured_imad_per_sec = rates["imad"]
+    lat = measure_latencies()
+    print(f"SM clock under the latency chains: {lat['clock_hz'] / 1e9:.3f} GHz; {label}",
+          flush=True)
+    for what, cycles in lat.items():
+        if what == "clock_hz":
+            continue
+        print(f"latency {what}: {cycles:.1f} cycles (one dependent chain a thread, "
+              f"{LATENCY_LANES} lanes x {LATENCY_ITERS} steps, clock64; checked against the "
+              f"plain version); {label}", flush=True)
+    w1 = measure_w1_steps()
+    for kind, cycles in w1.items():
+        print(f"W1 step on a {kind} chain (16 lanes, 4096 steps, checked against the plain "
+              f"version): {cycles:.1f} cycles; {label}", flush=True)
     tensor = measure_tensor_cores()
     for what, (ms, ops) in tensor.items():
         print(f"{what}: {ms:.4f} ms ({ops / 1e12:.2f} Top/s); {label}", flush=True)
@@ -205,7 +375,8 @@ def main() -> dict:
     for what, (ms, plain_ms) in kernels.items():
         print(f"{what} ({lanes} lanes): {ms:.4f} ms ({lanes / ms / 1e3:.1f} M ops/s), "
               f"plain {plain_ms:.2f} ms; {label}", flush=True)
-    return {"chip": chip, "chains": rates, "tensor": tensor, "kernels": kernels}
+    return {"chip": chip, "chains": rates, "latency": lat, "w1_steps": w1, "tensor": tensor,
+            "kernels": kernels}
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
-"""A seeded witness graph for checks: every op code the evaluator takes, with
-edge inputs.
+"""Witness graphs for checks and measurements, never built by the prover.
 
-chip_smoke.py holds W1 and W2 against their plain versions on it, and
-tests/test_torch_witness_ops.py holds the plain evaluator against the JAX
-package's evaluator and the host interpreter on it. The prover never
-builds it.
+  * edge_case_graph: a seeded graph holding every op code the evaluator
+    takes, with edge inputs. chip_smoke.py holds W1 and W2 against their
+    plain versions on it, and tests/test_torch_witness_ops.py holds the
+    plain evaluator against the JAX package's evaluator and the host
+    interpreter on it.
+  * chain_graph: one dependent chain of one op class, one node a level, so
+    one W1 step a node: tools/microbench.measure_w1_steps times W1's step
+    by op class on it.
 """
 
 from __future__ import annotations
@@ -111,3 +114,32 @@ def edge_case_graph(rng: np.random.Generator, lanes: int, n_inputs: int = 16):
     graph = gm.Graph(nodes=nodes, signals=list(range(len(nodes))),
                      input_mapping={"x": (1, n_inputs)}, tree_depth=0, max_out=1)
     return graph, values
+
+
+CHAIN_KINDS = {  # op cycle of each chain_graph kind
+    "mul": ("mul",), "mul_const": ("mul_const",), "add": ("add",),
+    "mix": ("mul", "add", "mul_const", "sub"),
+}
+CHAIN_CONST = 0x2F0B3C5A6D7E8F90A1B2C3D4E5F60718293A4B5C6D7E8F90A1B2C3D4E5F6071
+
+
+def chain_graph(kind: str, steps: int) -> gm.Graph:
+    """A chain of `steps` dependent nodes on input x, one a level: Mul of
+    the previous value by itself ("mul"), by a constant ("mul_const"), Add
+    of it to itself ("add"), or the cycle Mul, Add, Mul by a constant, Sub
+    of x ("mix"). The last node is the one signal."""
+    nodes = [gm.Node(kind=gm.K_INPUT, a=1), gm.Node(kind=gm.K_CONST, const=CHAIN_CONST)]
+    prev = 0
+    cycle = CHAIN_KINDS[kind]
+    for k in range(steps):
+        op = cycle[k % len(cycle)]
+        a, b, code = prev, prev, {"mul": gm.OP_MUL, "mul_const": gm.OP_MUL, "add": gm.OP_ADD,
+                                  "sub": gm.OP_SUB}[op]
+        if op == "mul_const":
+            b = 1
+        elif op == "sub":
+            b = 0
+        nodes.append(gm.Node(kind=gm.K_DUO, op=code, a=a, b=b))
+        prev = len(nodes) - 1
+    return gm.Graph(nodes=nodes, signals=[prev], input_mapping={"x": (1, 1)}, tree_depth=0,
+                    max_out=1)
