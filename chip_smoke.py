@@ -21,11 +21,10 @@ against their plain versions, bit for bit, segment by segment, on both
 depth-20 graphs at 16 lanes and on a graph holding every op code with edge
 inputs (tools/witness_graphs.edge_case_graph), each W1 launch on its
 segment's slot-file plan (circuit/witness_plan.py; its registers,
-preloaded values and shared memory printed), lane 0's assignment against
-the host interpreter's integers, the evaluator's lane sweep (16 / 64 /
-256 lanes, each equal to the first lanes of the widest), and W1's sweep of
-lanes a block L against lanes (each L's slot buffer equal to L = 1's, its
-blocks per SM), (4) a batch of 16
+preloaded values, shared memory and blocks per SM printed), lane 0's
+assignment against the host interpreter's integers, and the evaluator's
+lane sweep (16 / 64 / 256 lanes, each equal to the first lanes of the
+widest), (4) a batch of 16
 depth-20 RLN proofs through Groth16Prover.prove_batch (witnesses from W1)
 with pairing verification and lane-0 MSMs held against the native host
 MSMs, then a batch of 16 of the multi-message-id circuit (witnesses from
@@ -37,8 +36,8 @@ against its plain version and K1 fq at 2^17 lanes, its persistent grid
 and tensor-core opcodes, (8) the tools path with
 its launch counts: the microbenchmark, whose chains are checked against
 their plain version at the shape they are timed at (with the latencies
-behind W1's step chain: a dependent CIOS product, the Shoup candidate and
-its halves, shared and global memory round trips, and W1's step on chains
+behind W1's step chain: a dependent CIOS product, shared and global
+memory round trips, and W1's step on chains
 of one op class), and the profile of a
 warm batch (device busy share, the witness range's device time, top
 kernels), (9) each kernel's work, bound and share of the bound (W1's ms
@@ -533,7 +532,6 @@ def phase_kernels(rng, prover) -> KernelChecks:
 
 MULTI_GRAPH = "tree_depth_20/multi_message_id/max_out_4"
 SWEEP_LANES = (16, 64, 256)  # the evaluator's chunk
-W1_SWEEP_L = (1, 2, 4, 8, 16, 32)  # W1's lanes a block
 
 
 def load_multi():
@@ -563,9 +561,10 @@ def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -
     buffer, every slot held bit for bit (the padding slots too); the
     kernel timed by device_ms (a rerun writes the same slots again), the
     plain version by the host clock (one call). W1's largest segment is
-    recorded first, with its slot file's size. Returns the assignment
-    (16, n_signals, B)."""
+    recorded first, with its slot file's size and W1's blocks per SM at
+    that size. Returns the assignment (16, n_signals, B)."""
     from zerokit_tpu_torch.circuit import witness_kernels as wk
+    from zerokit_tpu_torch.ff import _cuda
     from zerokit_tpu_torch.runtime.profiling import device_ms, host_call, segment_work
 
     buf = ev.load(inputs)
@@ -576,10 +575,12 @@ def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -
                                             ev.plan.segments)):
         calls = []
         if seg.records.shape[0]:
+            smem = wk.steps_smem_bytes(len(sp.preload), sp.n_regs, ev.plan.n_consts)
+            blocks = _cuda.occupancy("zk_witness_steps_occupancy", int(sp.rich), smem)
             calls.append(("W1", f"witness_steps {cseg.kind} ({label} segment {i}, "
                           f"{seg.records.shape[0]} steps, {lanes} lanes; file: {sp.n_regs} "
                           f"registers, {len(sp.preload)} preloaded, {ev.plan.n_consts} constants; "
-                          f"{ev.plan.smem_bytes(sp, wk.LANES_PER_BLOCK)} B a block)",
+                          f"{smem} B a block, {blocks} blocks/SM)",
                           lambda s=seg: ev.steps_of(buf, s),
                           lambda s=seg: ev.steps_of(ref, s, plain=True),
                           segment_work(cseg, lanes, sp.records, ev.plan.n_consts)
@@ -656,41 +657,6 @@ def phase_witness(rng, checks: KernelChecks, graph, chip) -> None:
         log(f"    {lanes} lanes: evaluate_mont {whole:.3f} ms; W1+W2 {ms:.3f} ms, "
             f"{ms / ev.steps * 1e3:.3f} us/step, "
             f"{ms * 1e-3 * chip.sm_clock_hz / ev.steps:.0f} cycles/step")
-    phase_w1_sweep(ev, all_inputs, chip)
-
-
-def phase_w1_sweep(ev, all_inputs: np.ndarray, chip) -> None:
-    """W1's lanes a block (L) against the lane count, on the depth-20
-    graph's lean segment: each L's slot buffer equal to L = 1's, its time
-    (device_ms, 3 calls), its blocks per SM (occupancy at its shared
-    memory)."""
-    from zerokit_tpu_torch.circuit import witness_kernels as wk
-    from zerokit_tpu_torch.ff import _cuda
-    from zerokit_tpu_torch.runtime.profiling import device_ms
-
-    i, seg = max(enumerate(ev.segments), key=lambda s: s[1].records.shape[0])
-    sp = ev.plan.segments[i]
-    steps = seg.records.shape[0]
-    log(f"  W1 sweep, lanes a block L x lanes, depth-20 lean segment ({steps} steps; "
-        f"kept L = {wk.LANES_PER_BLOCK}; {chip.label()}):")
-    for lanes in SWEEP_LANES:
-        base = ev.load(np.ascontiguousarray(all_inputs[:, :, :lanes]))
-        ev.run(base)  # every segment's values, so the lean segment's preload is real
-        want = None
-        for per_block in W1_SWEEP_L:
-            buf = base.clone()
-            ev.steps_of(buf, seg, lanes_per_block=per_block)
-            if want is None:
-                want = buf
-            elif not torch.equal(buf, want):
-                raise AssertionError(f"W1 with L = {per_block} differs from L = "
-                                     f"{W1_SWEEP_L[0]} at {lanes} lanes")
-            ms = device_ms(lambda: ev.steps_of(buf, seg, lanes_per_block=per_block), 3)
-            blocks = _cuda.occupancy("zk_witness_steps_occupancy", int(sp.rich),
-                                     len(sp.preload), sp.n_regs, ev.plan.n_consts, per_block)
-            log(f"    {lanes} lanes, L = {per_block}: {ms:.4f} ms, {ms / steps * 1e3:.4f} us, "
-                f"{ms * 1e-3 * chip.sm_clock_hz / steps:.0f} cycles a step; "
-                f"{ev.plan.smem_bytes(sp, per_block)} B shared a block, {blocks} blocks/SM")
 
 
 # ---------------------------------------------------------------------------
@@ -870,8 +836,8 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict, latency: dict)
     (profiling.w1_chain_model, from phase 8's latencies) and the share of
     it the kernel reaches. Returns the bound of the check each key's JSON
     entry times, and W1's chain model."""
-    from zerokit_tpu_torch.runtime.profiling import (W1_PRODUCT, kernel_bound, kernel_work,
-                                                     tensor_ops, w1_chain_model)
+    from zerokit_tpu_torch.runtime.profiling import (kernel_bound, kernel_work, tensor_ops,
+                                                     w1_chain_model)
 
     first, ranking, seen = {}, [], set()
     warm_kernels = profile["top_all"]
@@ -893,7 +859,7 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict, latency: dict)
             first.setdefault("W1 chain", (model_ms, "chain"))
             log(f"    W1 chain model: {shape['steps']} steps x "
                 f"{latency['roundtrip_shared_4warps']:.1f} + ({shape['var_steps']} var x var + "
-                f"{shape['const_steps']} by a constant) x {latency[W1_PRODUCT]:.1f} cycles = "
+                f"{shape['const_steps']} by a constant) x {latency['mul']:.1f} cycles = "
                 f"{model_ms:.4f} ms; kernel {ms:.4f} ms, share {model_ms / ms:.1%}; "
                 f"{chip.label()}")
         tmpl = kernel_template(key, shape)

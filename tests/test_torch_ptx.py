@@ -12,6 +12,7 @@ drop one. The inputs reach the lazy core's edges (0, p - 1, p, 2p - 1,
 values just above p - 2^32, words of all ones).
 """
 
+import functools
 import os
 import random
 import re
@@ -27,18 +28,18 @@ NINV = {Q: 0xE4866389, R: 0xEFFFFFFF}
 MOD_2_256 = ("add8", "sub8")  # chains that wrap mod 2^256 by design
 
 
-def _asm(fname, src=SRC):
+def _asm(fname):
     """(instructions, operand expressions, number of outputs) of the one
-    asm statement in function `fname` of the source `src`."""
-    start = src.index(f" {fname}(")
-    j = src.index("asm(", start)
+    asm statement in function `fname`."""
+    start = SRC.index(f" {fname}(")
+    j = SRC.index("asm(", start)
     depth, k = 0, j + 3
     while True:
-        depth += {"(": 1, ")": -1}.get(src[k], 0)
+        depth += {"(": 1, ")": -1}.get(SRC[k], 0)
         if depth == 0:
             break
         k += 1
-    parts = src[j + 4:k].split(":")
+    parts = SRC[j + 4:k].split(":")
     text = "".join(re.findall(r'"((?:[^"\\]|\\.)*)"', parts[0])).replace("\\n", "\n")
     text = text.replace("\\t", "")
     outs = re.findall(r'"[+=]r"\(([^)]*)\)', parts[1])
@@ -47,10 +48,9 @@ def _asm(fname, src=SRC):
     return instrs, outs + ins, len(outs)
 
 
-def run(fname, env, src=SRC, wraps=MOD_2_256):
-    """Executes fname's asm (in the source `src`) on env (operand
-    expression -> value); only the chains in `wraps` may drop a carry."""
-    instrs, ops, nout = _asm(fname, src)
+def run(fname, env):
+    """Executes fname's asm on env (operand expression -> value)."""
+    instrs, ops, nout = _asm(fname)
     regs = {i: env.get(e, 0) for i, e in enumerate(ops)}
     local, carry = {}, None
 
@@ -93,7 +93,7 @@ def run(fname, env, src=SRC, wraps=MOD_2_256):
         if "cc" in parts:
             carry = out
         else:
-            if out and fname not in wraps:
+            if out and fname not in MOD_2_256:
                 raise AssertionError(f"{fname}: {ins} drops a carry")
             carry = None
     for i, e in enumerate(ops[:nout]):
@@ -235,3 +235,37 @@ def test_ptx_field_core_matches_big_integers(p):
             assert s < 2 * p and s % p == (a + b) % p
             d = f["sub"](a, b)
             assert d < 2 * p and d % p == (a - b) % p
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_constants():
+    """The distinct constants of both depth-20 RLN graphs, canonical."""
+    from zerokit_tpu_torch.circuit import graph as gm
+    from zerokit_tpu_torch.resources import resource_path
+
+    out = set()
+    for rel, max_out in (("tree_depth_20/graph.bin", None),
+                         ("tree_depth_20/multi_message_id/max_out_4/graph.bin", 4)):
+        graph = gm.graph_from_file(resource_path(rel), 20, max_out)
+        out |= {n.const % R for n in graph.nodes if n.kind == gm.K_CONST}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("x", [0, 1, R - 1, (R - 1) // 2, (R + 1) // 2],
+                         ids=["0", "1", "r-1", "(r-1)/2", "(r+1)/2"])
+def test_w1_product_by_a_graph_constant(x):
+    """W1 multiplies by a constant with the header's `mul` and the constant
+    table's Montgomery entry c 2^256 mod r: the product of an operand x
+    (Montgomery form) lies in [0, 2r) and equals x c mod r. Constants: 0,
+    1, r - 1 and seeded ones of both depth-20 graphs. The canonical c in
+    place of its table entry fails (a mutation check)."""
+    consts = _graph_constants()
+    assert len(consts) > 900
+    rng = random.Random(x & 0xFFFF)
+    sample = [0, 1, R - 1] + rng.sample(consts, 12)
+    f = core(R)
+    for c in sample:
+        m = f["mul"](x, c * 2 ** 256 % R)
+        assert m < 2 * R and m % R == x * c % R, (hex(x), hex(c))
+    if x:
+        assert any(f["mul"](x, c) % R != x * c % R for c in sample)

@@ -152,13 +152,17 @@ def test_plain_w1_on_the_plan_equals_jax(lanes):
 
 
 def test_smem_size_matches_the_wrapper():
-    compiled = compiled_graph("depth20")
-    plan = wp.plan_slot_file(compiled)
-    lean = plan.segments[1]
-    for per_block in (1, 2, 4, 8, 16, 32):
-        assert plan.smem_bytes(lean, per_block) == wk.steps_smem_bytes(
-            len(lean.preload), lean.n_regs, plan.n_consts, per_block)
-        assert plan.smem_bytes(lean, per_block) <= wk.MAX_SMEM
+    # the size the wrapper checks: a 64-step ring of 4 records of 16 B, 32 B
+    # a constant, and 32 B a preloaded value or register of each of a
+    # block's two lanes; every segment of both depth-20 graphs fits
+    for name in ("depth20", "depth20_multi"):
+        plan = wp.plan_slot_file(compiled_graph(name))
+        for seg in plan.segments:
+            n = wk.steps_smem_bytes(len(seg.preload), seg.n_regs, plan.n_consts)
+            assert n == 4096 + 32 * plan.n_consts + 64 * (len(seg.preload) + seg.n_regs)
+            assert n <= wk.MAX_SMEM
+    lean = wp.plan_slot_file(compiled_graph("depth20")).segments[1]
+    assert wk.steps_smem_bytes(len(lean.preload), lean.n_regs, 979) == 40160
 
 
 @pytest.mark.parametrize("field", ["ref", "slot", "dst", "op"])
@@ -204,5 +208,4 @@ def test_kernel_constants_equal_the_plan():
 
     assert const("kNoReg") == wp.NO_REG
     assert const("kRingSteps") == wp.RING_STEPS
-    assert const("kMaxLanes") == wk.MAX_LANES_PER_BLOCK
-    assert const("kMaxSmem") == wk.MAX_SMEM
+    assert const("kLanes") == wk.LANES_PER_BLOCK

@@ -416,13 +416,12 @@ class WitnessEvaluator:
                 wk.witness_div(buf, seg.div_ia, seg.div_ib, seg.div_out)
         return buf
 
-    def steps_of(self, buf: torch.Tensor, seg: DeviceSegment, plain: bool = False,
-                 lanes_per_block: int = None) -> torch.Tensor:
+    def steps_of(self, buf: torch.Tensor, seg: DeviceSegment, plain: bool = False) -> torch.Tensor:
         """W1 (or, with plain, its plain version) over one segment's steps."""
         args = (buf, seg.records, seg.preload, seg.n_regs, self.consts, seg.rich)
         if plain:
             return wk.witness_steps_plain(*args)
-        return wk.witness_steps(*args, lanes_per_block=lanes_per_block)
+        return wk.witness_steps(*args)
 
     def evaluate_mont(self, input_buffer_canon: np.ndarray) -> torch.Tensor:
         """input_buffer_canon: (16, inputs_size, B) canonical uint32 limbs

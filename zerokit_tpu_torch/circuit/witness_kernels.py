@@ -46,8 +46,7 @@ from . import witness_plan as wp
 L = NUM_LIMBS
 launches = {"witness_steps": 0, "witness_div": 0}
 DIV_THREADS = 128
-LANES_PER_BLOCK = 2  # W1's L: lanes a block (the sweep in PERF.md)
-MAX_LANES_PER_BLOCK = 32  # W1's block: 4 warps, one a node, one lane a thread
+LANES_PER_BLOCK = 2  # W1's lanes a block, csrc/witness_kernels.cu kLanes (PERF.md)
 MAX_SMEM = 232448  # dynamic shared memory a block can have (H100)
 
 _HALF_LIMBS = int_to_limbs((R - 1) // 2)
@@ -221,22 +220,21 @@ def _check_steps(buf, records, preload, n_regs, consts) -> None:
                         "slot file or the slot buffer")
 
 
-def steps_smem_bytes(n_pre: int, n_regs: int, n_consts: int, per_block: int) -> int:
-    """W1's dynamic shared memory a block (csrc/witness_kernels.cu
-    steps_smem_bytes): the schedule ring, the constant table, and each
-    lane's preload area and registers."""
-    words = (wp.RING_STEPS * we.W * wp.RECORD_WORDS + n_consts * 8
-             + per_block * (n_pre + n_regs) * 8)
+def steps_smem_bytes(n_pre: int, n_regs: int, n_consts: int) -> int:
+    """W1's dynamic shared memory a block, the layout of csrc/
+    witness_kernels.cu: the schedule ring, the constant table, and each of
+    the block's LANES_PER_BLOCK lanes' preload area and registers."""
+    words = (wp.RING_STEPS * we.W * wp.RECORD_WORDS + n_consts * wp.SLOT_WORDS
+             + LANES_PER_BLOCK * (n_pre + n_regs) * wp.SLOT_WORDS)
     return 4 * words
 
 
 def witness_steps(buf: torch.Tensor, records: torch.Tensor, preload: torch.Tensor, n_regs: int,
-                  consts: torch.Tensor, rich: bool, lanes_per_block: int = None) -> torch.Tensor:
+                  consts: torch.Tensor, rich: bool) -> torch.Tensor:
     """Runs one segment's steps (circuit/witness_plan: records (steps, W, 4),
     the preload slots, the register file's size) on the slot buffer buf
     (lanes, n_slots, 8) in place, with the constant table consts (n_consts,
-    8) int32 words; returns buf.
-    lanes_per_block: W1's L (default LANES_PER_BLOCK)."""
+    8) int32 words; returns buf."""
     if not on_cuda(buf, records, preload, consts):
         _check_steps(buf, records, preload, n_regs, consts)
         return witness_steps_plain(buf, records, preload, n_regs, consts, rich)
@@ -251,16 +249,13 @@ def witness_steps(buf: torch.Tensor, records: torch.Tensor, preload: torch.Tenso
     if consts.ndim != 2 or consts.shape[1] != 8:
         raise ValueError("consts must be (n, 8) words")
     _check_steps(buf, records, preload, n_regs, consts)
-    block = lanes_per_block or LANES_PER_BLOCK
-    if not 1 <= block <= MAX_LANES_PER_BLOCK:
-        raise ValueError(f"W1 takes 1-{MAX_LANES_PER_BLOCK} lanes a block, got {block}")
-    smem = steps_smem_bytes(preload.numel(), n_regs, consts.shape[0], block)
+    smem = steps_smem_bytes(preload.numel(), n_regs, consts.shape[0])
     if smem > MAX_SMEM:
-        raise wp.SlotFileTooLarge(f"W1 needs {smem} B of shared memory a block at {block} "
-                                  f"lanes a block; the card gives {MAX_SMEM}")
+        raise wp.SlotFileTooLarge(f"W1 needs {smem} B of shared memory a block; the card "
+                                  f"gives {MAX_SMEM}")
     if steps and lanes:
         _cuda.launch("zk_witness_steps", int(rich), buf, records, steps, preload,
-                     preload.numel(), n_regs, consts, consts.shape[0], n_slots, lanes, block)
+                     preload.numel(), n_regs, consts, consts.shape[0], n_slots, lanes, smem)
         launches["witness_steps"] += 1
     return buf
 

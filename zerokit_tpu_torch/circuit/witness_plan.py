@@ -70,18 +70,6 @@ class SlotPlan:
     def n_consts(self) -> int:
         return len(self.const_words)
 
-    def lane_values(self, seg: SegmentPlan) -> int:
-        """Values a lane keeps in shared memory: preload area and registers."""
-        return len(seg.preload) + seg.n_regs
-
-    def smem_bytes(self, seg: SegmentPlan, lanes_per_block: int) -> int:
-        """W1's dynamic shared memory for one block (csrc/witness_kernels.cu
-        steps_smem_bytes): the schedule ring, the constant table, and each
-        lane's preload area and registers."""
-        words = (self.n_consts * SLOT_WORDS + RING_STEPS * we.W * RECORD_WORDS
-                 + lanes_per_block * self.lane_values(seg) * SLOT_WORDS)
-        return 4 * words
-
 
 def const_words(compiled: we.CompiledGraph) -> np.ndarray:
     """(n_consts, 8) uint32 Montgomery words of compile_graph's constants."""

@@ -17,10 +17,8 @@
 //
 // The latencies behind W1's step chain (csrc/witness_kernels.cu), each in
 // SM cycles (clock64) of one dependent chain a thread, at few lanes:
-//   latency_kernel<0>  bn254.cuh's CIOS `mul`: x <- x * y / 2^256 mod r
-//   latency_kernel<1>  fr_latency.cuh's Shoup `mul_const`: x <- x * c mod r
-//   latency_kernel<2>  its mul_high: x <- floor(x * y / 2^256)
-//   latency_kernel<3>  its mul_low: x <- x * y mod 2^256
+//   latency_kernel  bn254.cuh's CIOS `mul`, W1's product:
+//     x <- x * y / 2^256 mod r
 //   roundtrip_kernel<Mode>  a lane's four threads pass 32-byte values
 //     around through global (0) or shared (1) memory: load, add, store,
 //     __syncwarp, the memory part of one W1 step; mode 2 is mode 1 with
@@ -33,7 +31,6 @@
 #include <cstdint>
 
 #include "bn254.cuh"
-#include "fr_latency.cuh"
 
 namespace {
 
@@ -87,40 +84,20 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = r;
 }
 
-template <int Kind>
 __global__ void __launch_bounds__(32)
     latency_kernel(const u32* x0, const u32* y, u32* out, i64* cycles, int n, int iters) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   FrE x, b;
-  u32 c[8], cp[8];
 #pragma unroll
   for (int k = 0; k < 8; k++) {
     x.v[k] = x0[i * 8 + k];
-    b.v[k] = y[i * 16 + k];
-    c[k] = y[i * 16 + k];
-    cp[k] = y[i * 16 + 8 + k];
+    b.v[k] = y[i * 8 + k];
   }
   i64 t0 = clock64();
 #pragma unroll 1
-  for (int it = 0; it < iters; it++) {
-    if constexpr (Kind == 0) {
-      x = zk::mul(x, b);
-    } else if constexpr (Kind == 1) {
-      x = zk::mul_const(x, c, cp);
-    } else if constexpr (Kind == 2) {
-      zk::u32 w[8];
-      zk::mul_high(w, x.v, b.v);
-#pragma unroll
-      for (int k = 0; k < 8; k++) x.v[k] = w[k];
-    } else {
-      zk::u32 w[8];
-      zk::mul_low(w, x.v, b.v);
-#pragma unroll
-      for (int k = 0; k < 8; k++) x.v[k] = w[k];
-    }
-  }
-  if constexpr (Kind < 2) x = zk::canon(x);
+  for (int it = 0; it < iters; it++) x = zk::mul(x, b);
+  x = zk::canon(x);
   i64 t1 = clock64();
 #pragma unroll
   for (int k = 0; k < 8; k++) out[i * 8 + k] = x.v[k];
@@ -196,24 +173,13 @@ int zk_chain(int op, const void* a, const void* b, void* out, long long n, int i
   return (int)cudaGetLastError();
 }
 
-// x0: (n, 8) words; y: (n, 16) words (the multiplier, or c and c');
-// out: (n, 8) words; cycles: (n,) int64.
-int zk_latency(int kind, const void* x0, const void* y, void* out, void* cycles, int n, int iters,
+// x0, y, out: (n, 8) words; cycles: (n,) int64.
+int zk_latency(const void* x0, const void* y, void* out, void* cycles, int n, int iters,
                void* stream) {
   if (n < 1 || iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((unsigned)((n + 31) / 32));
-  const u32* px = (const u32*)x0;
-  const u32* py = (const u32*)y;
-  u32* po = (u32*)out;
-  i64* pc = (i64*)cycles;
-  switch (kind) {
-    case 0: latency_kernel<0><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
-    case 1: latency_kernel<1><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
-    case 2: latency_kernel<2><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
-    case 3: latency_kernel<3><<<grid, 32, 0, s>>>(px, py, po, pc, n, iters); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  latency_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>((const u32*)x0, (const u32*)y, (u32*)out,
+                                                        (i64*)cycles, n, iters);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,7 @@
 //     A shared round trip is 77 cycles against 339 through global memory
 //     (tools/microbench.measure_latencies, PERF.md).
 //   * Thread mapping: 4 warps a block, warp w runs node w of every step for
-//     the block's L lanes (one a thread): a warp never diverges over a
+//     the block's kLanes lanes (one a thread): a warp never diverges over a
 //     step's different ops, so a step costs its slowest node, and a block
 //     barrier ends each step. (With a lane's 4 threads in one warp, its
 //     nodes' ops ran one after another.)
@@ -37,9 +37,9 @@
 //     halves that cp.async fills one half ahead, off the step chain.
 //   * Each thread dispatches on its node's op code; it does not compute all
 //     10 or 18 candidates and select, which is the XLA form of the step.
-//   * Every Mul runs bn254.cuh's CIOS `mul` (PTX carry chains, 805 cycles
-//     of dependent latency); fr_latency.cuh's Shoup product by a constant
-//     measured 912 (tools/microbench.py, PERF.md), so W1 does not use it.
+//   * Every Mul, by a constant too, runs bn254.cuh's CIOS `mul` (PTX carry
+//     chains, 805 cycles of dependent latency, tools/microbench.py; a Shoup
+//     product by a constant measured slower, PERF.md).
 //   * Field core: values in registers and in the lanes' file lie in
 //     [0, 2p); a store to the slot buffer canonicalises, and equality and
 //     the tests of zero canonicalise their operands first. Rich ops go
@@ -57,10 +57,10 @@ using namespace zk;
 namespace {
 
 constexpr int kW = 4;  // nodes a step (circuit/witness_eval.W), W1's threads a lane
-constexpr int kMaxLanes = 32;  // W1's lanes a block: a warp's threads
+constexpr int kLanes = 2;  // W1's lanes a block (circuit/witness_kernels.LANES_PER_BLOCK)
+constexpr int kHalf = kLanes * 4;  // words from a file value's low half to its high half
 constexpr int kRingSteps = 64;  // W1's schedule ring (circuit/witness_plan.RING_STEPS)
 constexpr int kRingHalf = kRingSteps / 2;
-constexpr int kMaxSmem = 232448;  // dynamic shared memory a block can have (H100)
 constexpr unsigned kNoReg = 0xffffu;  // circuit/witness_plan.NO_REG
 constexpr int kMaxDivThreads = 256;
 
@@ -250,13 +250,13 @@ __device__ __forceinline__ void fill_ring(int4* ring, const int4* rec, int h, in
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// A block holds L lanes (at most kMaxLanes) and kW warps: warp w runs node
-// w of every step for the block's L lanes, one lane a thread, so a warp
-// never diverges over a step's different ops and a step takes its slowest
-// node, not the sum of its nodes' ops. A block barrier ends each step.
+// A block holds kLanes lanes and kW warps: warp w runs node w of every step
+// for the block's lanes, one lane a thread, so a warp never diverges over a
+// step's different ops and a step takes its slowest node, not the sum of
+// its nodes' ops. A block barrier ends each step.
 // Shared memory (words): the schedule ring, the constant table, then the
 // lanes' file, lane-interleaved by 16-byte half: half h of value v of lane
-// l at ((2 v + h) L + l) * 4, so a warp's loads of one value hit
+// l at ((2 v + h) kLanes + l) * 4, so a warp's loads of one value hit
 // consecutive 16-byte units. A reference r < n_consts names constant r
 // (the same address for every lane), else value r - n_consts of the lane's
 // file (preload area, then registers). File values lie in [0, 2p), like
@@ -266,22 +266,20 @@ template <bool Rich>
 __global__ void __launch_bounds__(kW * 32)
     witness_steps_kernel(u32* buf, const int4* __restrict__ rec, int steps,
                          const int* __restrict__ preload, int n_pre, int n_regs,
-                         const u32* __restrict__ consts, int n_consts, i64 n_slots, int lanes,
-                         int per_block) {
+                         const u32* __restrict__ consts, int n_consts, i64 n_slots, int lanes) {
   extern __shared__ __align__(16) u32 smem[];
   int4* ring = reinterpret_cast<int4*>(smem);
   u32* sconst = smem + kRingSteps * kW * 4;
   const int node = threadIdx.x / 32, l = threadIdx.x % 32;
-  const int lane = blockIdx.x * per_block + l;
-  const bool live = l < per_block && lane < lanes;
+  const int lane = blockIdx.x * kLanes + l;
+  const bool live = l < kLanes && lane < lanes;
   u32* gbase = buf + (i64)(live ? lane : 0) * n_slots * 8;
   // every thread of a warp runs its node (the branches stay warp-uniform);
   // threads past the block's lanes read lane 0's file and store nothing
-  u32* mine = sconst + n_consts * 8 + (l < per_block ? l : 0) * 4;
-  const int half = per_block * 4;  // words from a file value's low half to its high half
+  u32* mine = sconst + n_consts * 8 + (l < kLanes ? l : 0) * 4;
   // a reference r >= n_consts: value r - n_consts of the lane's file, at
-  // words file0 + r * 2 * half of smem (halves `half` apart)
-  const int file0 = (int)(mine - smem) - n_consts * 2 * half;
+  // words file0 + r * 2 * kHalf of smem (halves kHalf apart)
+  const int file0 = (int)(mine - smem) - n_consts * 2 * kHalf;
 
   fill_ring(ring, rec, 0, steps);
   const uint4* gc = reinterpret_cast<const uint4*>(consts);
@@ -289,14 +287,14 @@ __global__ void __launch_bounds__(kW * 32)
     reinterpret_cast<uint4*>(sconst)[i] = __ldg(gc + i);
   if (live) {  // warp w copies halves w, w + kW, ... of the lane's preload area
     for (int i = node; i < n_pre * 2; i += kW)
-      *reinterpret_cast<uint4*>(mine + i * half) =
+      *reinterpret_cast<uint4*>(mine + i * kHalf) =
           reinterpret_cast<const uint4*>(gbase + (i64)__ldg(preload + i / 2) * 8)[i % 2];
   }
   auto load_ref = [&](u32 ref) -> FrE {
     const bool k = ref < (u32)n_consts;
-    const u32* p = k ? sconst + ref * 8 : smem + file0 + ref * 2 * half;
+    const u32* p = k ? sconst + ref * 8 : smem + file0 + ref * 2 * kHalf;
     const uint4 a = *reinterpret_cast<const uint4*>(p);
-    const uint4 b = *reinterpret_cast<const uint4*>(p + (k ? 4 : half));
+    const uint4 b = *reinterpret_cast<const uint4*>(p + (k ? 4 : kHalf));
     return {{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
   };
 
@@ -332,9 +330,9 @@ __global__ void __launch_bounds__(kW * 32)
       }
       const u32 dst = (u32)r.x >> 16;
       if (live && dst != kNoReg) {
-        u32* p = smem + file0 + dst * 2 * half;
+        u32* p = smem + file0 + dst * 2 * kHalf;
         *reinterpret_cast<uint4*>(p) = make_uint4(v.v[0], v.v[1], v.v[2], v.v[3]);
-        *reinterpret_cast<uint4*>(p + half) = make_uint4(v.v[4], v.v[5], v.v[6], v.v[7]);
+        *reinterpret_cast<uint4*>(p + kHalf) = make_uint4(v.v[4], v.v[5], v.v[6], v.v[7]);
       }
       if (live && r.w >= 0) store_slot(gbase + (i64)r.w * 8, v);
     }
@@ -344,25 +342,16 @@ __global__ void __launch_bounds__(kW * 32)
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-int steps_smem_bytes(int n_pre, int n_regs, int n_consts, int per_block) {
-  long long words = (long long)kRingSteps * kW * 4 + (long long)n_consts * 8 +
-                    (long long)per_block * (n_pre + n_regs) * 8;
-  return words * 4 > kMaxSmem ? -1 : (int)(words * 4);
-}
-
 template <bool Rich>
 int launch_steps(u32* buf, const int4* rec, int steps, const int* preload, int n_pre, int n_regs,
-                 const u32* consts, int n_consts, i64 n_slots, int lanes, int per_block,
+                 const u32* consts, int n_consts, i64 n_slots, int lanes, int bytes,
                  cudaStream_t s) {
-  int bytes = steps_smem_bytes(n_pre, n_regs, n_consts, per_block);
-  if (bytes < 0) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(witness_steps_kernel<Rich>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((lanes + per_block - 1) / per_block));
+  dim3 grid((unsigned)((lanes + kLanes - 1) / kLanes));
   witness_steps_kernel<Rich><<<grid, kW * 32, bytes, s>>>(buf, rec, steps, preload, n_pre, n_regs,
-                                                          consts, n_consts, n_slots, lanes,
-                                                          per_block);
+                                                          consts, n_consts, n_slots, lanes);
   return (int)cudaGetLastError();
 }
 
@@ -404,23 +393,21 @@ extern "C" {
 
 // rich: 0 lean, 1 rich segment. buf: (lanes, n_slots, 8) words; records:
 // (steps, 4, 4) int32 (circuit/witness_plan.py); preload: (n_pre,) slots;
-// consts: (n_consts, 8) words; per_block: L. A file that does not fit
-// kMaxSmem, or L outside [1, kMaxLanes], is an error: there is no other path.
+// consts: (n_consts, 8) words; smem_bytes: the block's dynamic shared
+// memory (circuit/witness_kernels.steps_smem_bytes). More than the card
+// gives is an error: there is no other path.
 int zk_witness_steps(int rich, void* buf, const void* records, int steps, const void* preload,
                      int n_pre, int n_regs, const void* consts, int n_consts, long long n_slots,
-                     int lanes, int per_block, void* stream) {
-  if (per_block < 1 || per_block > kMaxLanes) return (int)cudaErrorInvalidValue;
+                     int lanes, int smem_bytes, void* stream) {
   auto f = rich ? launch_steps<true> : launch_steps<false>;
   return f((u32*)buf, (const int4*)records, steps, (const int*)preload, n_pre, n_regs,
-           (const u32*)consts, n_consts, n_slots, lanes, per_block, (cudaStream_t)stream);
+           (const u32*)consts, n_consts, n_slots, lanes, smem_bytes, (cudaStream_t)stream);
 }
 
-// blocks of W1 an SM holds at this file size and L
-int zk_witness_steps_occupancy(int rich, int n_pre, int n_regs, int n_consts, int per_block,
-                               int* blocks) {
-  int bytes = steps_smem_bytes(n_pre, n_regs, n_consts, per_block);
-  if (bytes < 0 || per_block < 1 || per_block > kMaxLanes) return (int)cudaErrorInvalidValue;
-  return rich ? steps_occupancy<true>(bytes, blocks) : steps_occupancy<false>(bytes, blocks);
+// blocks of W1 an SM holds with smem_bytes of dynamic shared memory a block
+int zk_witness_steps_occupancy(int rich, int smem_bytes, int* blocks) {
+  return rich ? steps_occupancy<true>(smem_bytes, blocks)
+              : steps_occupancy<false>(smem_bytes, blocks);
 }
 
 // buf: (lanes, n_slots, 8) words; ia, ib, out: (n_div,) int32 slots.

@@ -32,7 +32,7 @@ BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "zerokit_tpu_torch")
 )
 SOURCES = (
-    "bn254.cuh", "fr_latency.cuh", "field_kernels.cu", "ec_scan.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu",
+    "bn254.cuh", "field_kernels.cu", "ec_scan.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu",
     "witness_kernels.cu",
 )
 NVCC_FLAGS = (
@@ -58,10 +58,10 @@ _SIGNATURES = {
     "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),
     "zk_mont_mul_tc_occupancy": (_PI,),
     "zk_chain": (_I, _P, _P, _P, _LL, _I, _P),
-    "zk_latency": (_I, _P, _P, _P, _P, _I, _I, _P),
+    "zk_latency": (_P, _P, _P, _P, _I, _I, _P),
     "zk_roundtrip": (_I, _P, _P, _I, _I, _P),
     "zk_witness_steps": (_I, _P, _P, _I, _P, _I, _I, _P, _I, _LL, _I, _I, _P),
-    "zk_witness_steps_occupancy": (_I, _I, _I, _I, _I, _PI),
+    "zk_witness_steps_occupancy": (_I, _I, _PI),
     "zk_witness_div": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
 }
 

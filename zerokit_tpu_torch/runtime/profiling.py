@@ -58,10 +58,6 @@ WITNESS_OP_MONT_MULS = {1: 1, 10: 3, 11: 3, 12: 3, 13: 3, 14: 2, 15: 2, 16: 2, 1
 # of its 127 set bits, and a * b^-1
 WITNESS_DIV_MONT_MULS = 254 + 127 + 1
 SLOT_BYTES = 32  # one value in the witness slot buffer: 8 words
-# W1's product (csrc/witness_kernels.cu) by tools/microbench.PRODUCTS' name:
-# bn254.cuh's CIOS `mul`, by a constant too (Shoup's `mul_const` was slower
-# on the card, PERF.md section 6)
-W1_PRODUCT = "mul"
 WORD = 4  # bytes of one stored limb (int32 word holding 16 bits)
 LIMBS = 16
 
@@ -558,12 +554,12 @@ def segment_work(seg, lanes: int, records: Optional[np.ndarray] = None,
 def w1_chain_model(chip: ChipSpec, latency: Dict[str, float], **shape) -> float:
     """Seconds of W1's step chain over one segment (segment_work's shape
     with records): every step one shared-memory round trip across W1's
-    four warps and their block barrier, plus one product's latency
-    (W1_PRODUCT) for each step with a product, variable x variable or by a
-    constant, from the cycle latencies that tools/microbench.
-    measure_latencies reads on the card."""
+    four warps and their block barrier, plus one latency of bn254.cuh's
+    `mul` (W1's product, by a constant too) for each step with a product,
+    variable x variable or by a constant, from the cycle latencies that
+    tools/microbench.measure_latencies reads on the card."""
     cycles = (shape["steps"] * latency["roundtrip_shared_4warps"]
-              + (shape["var_steps"] + shape["const_steps"]) * latency[W1_PRODUCT])
+              + (shape["var_steps"] + shape["const_steps"]) * latency["mul"])
     return cycles / chip.sm_clock_hz
 
 

@@ -15,8 +15,7 @@ Counterpart of tools/tpu_microbench.py. Measures on the card:
     the same tensors (the JAX tool's XLA comparison);
   * the latencies behind W1's step chain, in SM cycles (clock64) of one
     dependent chain a thread at LATENCY_LANES lanes: a product by
-    bn254.cuh's CIOS `mul`, by fr_latency.cuh's Shoup `mul_const` and by
-    its two halves (mul_high, mul_low), and one step's memory round trip
+    bn254.cuh's CIOS `mul` (W1's product), and one step's memory round trip
     (load, store, __syncwarp among a lane's four threads) through global
     memory, through shared memory, through shared memory with a global
     store beside, and through shared memory across four warps and a block
@@ -49,9 +48,6 @@ from . import tc_mont_prototype as tc
 
 OPS = {"imad": 0, "imad_hi": 1, "add": 2, "shift_xor": 3, "ffma": 4}
 ACC = 8  # independent accumulators per thread in csrc/microbench.cu
-# csrc/microbench.cu latency_kernel: W1's two products, then the halves of
-# Shoup's product (mul_const's parts)
-PRODUCTS = {"mul": 0, "mul_const": 1, "mul_high": 2, "mul_low": 3}
 # roundtrip_kernel modes
 ROUNDTRIPS = {"global": 0, "shared": 1, "shared_store": 2, "shared_4warps": 3}
 LATENCY_LANES, LATENCY_ITERS = 32, 4096
@@ -151,48 +147,35 @@ def _ints(words: torch.Tensor) -> list:
     return [sum(int(x) << (32 * k) for k, x in enumerate(row)) for row in w]
 
 
-def latency_inputs(kind: str, n: int, device):
-    """Seeded (n, 8) words x (Montgomery values < r) and (n, 16) words y:
-    the multiplier (mul, mul_high, mul_low) or a constant c < r and its Shoup partner
-    c' = floor(c 2^256 / r) (mul_const)."""
+def latency_inputs(n: int, device):
+    """Seeded (n, 8) words x and y, Montgomery values < r."""
     rng = np.random.default_rng(17)
     xs = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
     ys = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(n)]
-    if kind == "mul_const":
-        ys = [c | (((c << 256) // R) << 256) for c in ys]
-    return _words(xs, 8).to(device), _words(ys, 16).to(device)
+    return _words(xs, 8).to(device), _words(ys, 8).to(device)
 
 
-def latency(kind: str, x: torch.Tensor, y: torch.Tensor, iters: int):
-    """(x after iters dependent products (n, 8) words, cycles (n,) int64)."""
-    if x.ndim != 2 or x.shape[1] != 8 or y.shape != (x.shape[0], 16):
-        raise ValueError("latency: x must be (n, 8) and y (n, 16) int32 words")
+def latency(x: torch.Tensor, y: torch.Tensor, iters: int):
+    """(x after iters dependent products x <- mul(x, y), (n, 8) words;
+    cycles (n,) int64)."""
+    if x.ndim != 2 or x.shape[1] != 8 or y.shape != x.shape:
+        raise ValueError("latency: x and y must be (n, 8) int32 words")
     if not fk.on_cuda(x, y):
-        return latency_plain(kind, x, y, iters), None
+        return latency_plain(x, y, iters), None
     for t, name in ((x, "x"), (y, "y")):
         fk.check_limbs(t, name)
     out = torch.empty_like(x)
     cycles = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
-    _cuda.launch("zk_latency", PRODUCTS[kind], x, y, out, cycles, x.shape[0], iters)
+    _cuda.launch("zk_latency", x, y, out, cycles, x.shape[0], iters)
     launches["latency"] += 1
     return out, cycles
 
 
-def latency_plain(kind: str, x: torch.Tensor, y: torch.Tensor, iters: int) -> torch.Tensor:
-    """Plain version of latency's values, on Python integers: x * y / 2^256
-    mod r (mul), x * c mod r (mul_const), floor(x * y / 2^256) (mul_high)
-    or x * y mod 2^256 (mul_low), iters times."""
+def latency_plain(x: torch.Tensor, y: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain version of latency's values, on Python integers: x * (y /
+    2^256)^iters mod r, canonical."""
     rinv = pow(1 << 256, -1, R)
-    out = []
-    for xv, yv in zip(_ints(x), _ints(y)):
-        y0 = yv & ((1 << 256) - 1)
-        if kind in ("mul_high", "mul_low"):
-            for _ in range(iters):
-                xv = xv * y0 >> 256 if kind == "mul_high" else xv * y0 % (1 << 256)
-            out.append(xv)
-            continue
-        f = y0 * (1 if kind == "mul_const" else rinv) % R
-        out.append(xv * pow(f, iters, R) % R)
+    out = [xv * pow(yv * rinv % R, iters, R) % R for xv, yv in zip(_ints(x), _ints(y))]
     return _words(out, 8).to(x.device)
 
 
@@ -225,19 +208,18 @@ def roundtrip_plain(g: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 def measure_latencies(lanes: int = LATENCY_LANES, iters: int = LATENCY_ITERS) -> dict:
-    """Cycles a dependent product of each kind and of one memory round trip,
-    the mean over the lanes' chains (one warp), each kernel first held
-    against its plain version on the tensors it is timed on."""
-    out = {}
-    for kind in PRODUCTS:
-        x, y = latency_inputs(kind, lanes, "cuda")
-        got, cycles = latency(kind, x, y, iters)
-        if not torch.equal(got, latency_plain(kind, x, y, iters)):
-            raise AssertionError(f"latency {kind}: the kernel disagrees with its plain version")
-        out[kind] = cycles.double().mean().item() / iters
-        if kind == "mul":  # the SM clock the chains ran at: cycles over device time
-            ms = device_ms(lambda: latency(kind, x, y, iters), 3)
-            out["clock_hz"] = cycles.double().max().item() / (ms * 1e-3)
+    """Cycles of a dependent product ("mul") and of one memory round trip of
+    each ROUNDTRIPS mode, the mean over the lanes' chains (one warp), each
+    kernel first held against its plain version on the tensors it is timed
+    on; and the SM clock the chains ran at ("clock_hz": the product chain's
+    cycles over its device time)."""
+    x, y = latency_inputs(lanes, "cuda")
+    got, cycles = latency(x, y, iters)
+    if not torch.equal(got, latency_plain(x, y, iters)):
+        raise AssertionError("latency mul: the kernel disagrees with its plain version")
+    out = {"mul": cycles.double().mean().item() / iters}
+    ms = device_ms(lambda: latency(x, y, iters), 3)
+    out["clock_hz"] = cycles.double().max().item() / (ms * 1e-3)
     rng = np.random.default_rng(19)
     g = torch.from_numpy(rng.integers(0, 1 << 32, size=(4, 2, 4, 8), dtype=np.uint64)
                          .astype(np.uint32).view(np.int32)).cuda()
