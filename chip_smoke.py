@@ -1,4 +1,4 @@
-"""Drives zerokit_tpu_torch's proving path and tools path on one NVIDIA GPU.
+"""Drives zerokit_tpu_torch's proving path, tree, RLN API and tools path on one NVIDIA GPU.
 
 Run from the repository root on a machine with the card:
 
@@ -42,7 +42,18 @@ of one op class), and the profile of a
 warm batch (device busy share, the witness range's device time, top
 kernels), (9) each kernel's work, bound and share of the bound (W1's ms
 and cycles a step beside, and its share of the chain model of
-runtime/profiling.w1_chain_model on phase 8's latencies). Times are CUDA-event times of calls run back
+runtime/profiling.w1_chain_model on phase 8's latencies), (10) the tree
+and the RLN API, with the launch counters at 0 before and read after: 2^20
+seeded member secrets made Montgomery by K1, their id and rate
+commitments by P1 (the Poseidon kernel) at t = 2 and 3, a depth-20
+DeviceMerkleTree of them (its warm rebuild of 20 P1 launches timed), its
+leaves, paths and a depth-14 tree held against the native host library,
+then RLN.stateless() proving two batches of 16 from the tree's paths
+(verify, verify_batch, verify_with_roots, recover_id_secret) and the README
+quick start on RLN.stateful(); then P1 against its plain version on the
+tree's own leaf level in place, on the id and rate commitment calls at
+their own 2^20 lanes, at t = 2, 3, 4 and 9 with edge lanes, and in its
+strided form against copied inputs. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -799,6 +810,246 @@ def phase_tools_path(rng, prover, chip_label: str) -> dict:
             "profile": rep}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: batched Poseidon (P1), the depth-20 device tree, the RLN API
+# ---------------------------------------------------------------------------
+
+TREE_DEPTH = 20  # the tree users run: 2^20 leaves, the depth-20 circuit's
+NATIVE_DEPTH = 14  # the device tree rebuilt level by level natively
+USER_LIMIT = 100  # userMessageLimit of every member
+
+
+def poseidon_edge_values() -> list:
+    """Raw Montgomery limb values of P1's edge lanes: 0, 1, r - 1, the
+    Montgomery images of r - 1 and of values near 2^253, 2^253 + 1, r - 2.
+    Lane 2 holds r - 1 in every input, so every state lane but 0 starts there."""
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.ff.field import FR
+
+    return [0, 1, R - 1, FR.to_mont_int(R - 1), FR.to_mont_int((1 << 253) + 1),
+            FR.to_mont_int((1 << 253) - 3), (1 << 253) + 1, R - 2]
+
+
+def poseidon_inputs(rng, n: int) -> torch.Tensor:
+    """(16, n) seeded values < r on the card, the edge lanes first."""
+    from zerokit_tpu_torch.constants import R
+
+    limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    limbs[15] %= R >> 240
+    for j, v in enumerate(poseidon_edge_values()[:n]):
+        limbs[:, j] = limbs_of(v)
+    return on_card(limbs)
+
+
+def build_member_tree(rng):
+    """The main path's tree: 2^20 seeded secrets as canonical limbs straight
+    from numpy, to Montgomery form by K1, id commitments H(secret) by P1 at
+    t = 2, rate commitments H(id, limit) by P1 at t = 3 (the limit a
+    stride-0 view of one column), then set_leaves_mont(0, .) on a depth-20
+    DeviceMerkleTree. Returns (tree, canonical secrets, rate commitments,
+    the two commitment calls as {name: (P1's inputs, its output)})."""
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.ff.field import FR, FrField
+    from zerokit_tpu_torch.hash.poseidon import poseidon_hash_mont, poseidon_hash_pair_mont
+    from zerokit_tpu_torch.tree.batched import DeviceMerkleTree
+
+    n = 1 << TREE_DEPTH
+    limbs = rng.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    limbs[15] %= R >> 240
+    secrets = on_card(limbs)
+    mont = FrField.to_mont(secrets)
+    ids = poseidon_hash_mont([mont])
+    limit = FR.encode([USER_LIMIT]).cuda().expand(16, n)
+    rate = poseidon_hash_pair_mont(ids, limit)
+    tree = DeviceMerkleTree(TREE_DEPTH)
+    tree.set_leaves_mont(0, rate)
+    calls = {"id commitments H(secret), t=2": ([mont], ids),
+             "rate commitments H(id, limit), t=3, limit at lane stride 0": ([ids, limit], rate)}
+    return tree, secrets, rate, calls
+
+
+def check_tree_natively(idx: np.ndarray, tree, secrets, rate) -> None:
+    """The device tree against the native host library (independent code):
+    the leaves at idx (64 sampled indices) equal H(H(secret), limit) by the
+    host poseidon_hash, the paths of every fourth of them from proofs_batch
+    give the device root through merkle_compute_root_native, and a depth-14
+    device tree of the first 2^14 rate commitments equals a native rebuild
+    level by level."""
+    from zerokit_tpu_torch.ff.field import FR, decode_canonical_fast
+    from zerokit_tpu_torch.hash.poseidon import poseidon_hash
+    from zerokit_tpu_torch.runtime import native
+    from zerokit_tpu_torch.tree.batched import DeviceMerkleTree
+
+    sec = decode_canonical_fast(secrets[:, torch.as_tensor(idx).cuda()].cpu())
+    leaves = FR.decode(tree._levels[TREE_DEPTH][:, torch.as_tensor(idx).cuda()])
+    for s, leaf in zip(sec, leaves):
+        if int(leaf) != poseidon_hash([poseidon_hash([s]), USER_LIMIT]):
+            raise AssertionError("a device leaf differs from the host H(H(secret), limit)")
+    log(f"  64 sampled leaves equal the host (native) H(H(secret), {USER_LIMIT})")
+    paths = [int(i) for i in idx[:: 64 // BATCH]]
+    elems, bits = tree.proofs_batch(paths)
+    root = tree.root()
+    for k, i in enumerate(paths):
+        if native.merkle_compute_root_native(tree.get(i), elems[k], bits[k]) != root:
+            raise AssertionError(f"the native root of leaf {i}'s path differs from the device root")
+    log(f"  {len(paths)} paths from proofs_batch give the device root through "
+        f"merkle_compute_root_native")
+    small = DeviceMerkleTree(NATIVE_DEPTH)
+    small.set_leaves_mont(0, rate[:, : 1 << NATIVE_DEPTH])
+    level = [int(v) for v in FR.decode(small._levels[NATIVE_DEPTH])]
+    hashes = 0
+    for lv in range(NATIVE_DEPTH - 1, -1, -1):
+        level = native.poseidon_hash_pairs_native(level[0::2], level[1::2])
+        hashes += len(level)
+        if level != [int(v) for v in FR.decode(small._levels[lv])]:
+            raise AssertionError(f"depth-{NATIVE_DEPTH} device tree level {lv} differs from "
+                                 f"the native rebuild")
+    log(f"  depth-{NATIVE_DEPTH} device tree equals the native rebuild level by level "
+        f"({hashes} hashes)")
+
+
+def run_facade(tree, secrets, paths) -> dict:
+    """The RLN facade on RLN.stateless() (the embedded depth-20 circuit, on
+    the card): a batch of 16 RLNWitnessInput.new_single from the tree's own
+    paths, then a second batch of the same members with other signals in
+    the same epoch; each proof verifies singly, each batch by verify_batch,
+    each proof by verify_with_roots against the tree's root; member 0's two
+    proofs give its secret back. Then the README quick start on
+    RLN.stateful(). Returns the batches' host seconds."""
+    from zerokit_tpu_torch import (RLN, RLNWitnessInput, hash_to_field_le, keygen,
+                                   poseidon_hash_pair)
+    from zerokit_tpu_torch.ff.field import decode_canonical_fast
+
+    t0 = time.perf_counter()
+    rln = RLN.stateless()
+    setup_s = time.perf_counter() - t0
+    elems, bits = tree.proofs_batch(paths)
+    sec = decode_canonical_fast(secrets[:, torch.as_tensor(paths).cuda()].cpu())
+    ext = poseidon_hash_pair(hash_to_field_le(b"epoch"), hash_to_field_le(b"rln-app"))
+    root = tree.root()
+    batches, seconds = [], []
+    for round_ in range(2):
+        ws = [RLNWitnessInput.new_single(s, USER_LIMIT, 1, e, b,
+                                         hash_to_field_le(b"signal %d %d" % (round_, k)), ext)
+              for k, (s, e, b) in enumerate(zip(sec, elems, bits))]
+        t0 = time.perf_counter()
+        out = rln.generate_proofs(ws)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        for (proof, values), w in zip(out, ws):
+            if values.root != root:
+                raise AssertionError("a witness's root differs from the device tree's")
+            if not rln.verify(proof, values):
+                raise AssertionError("a facade proof failed verify")
+            rln.verify_with_roots(proof, values, w.x, [root])
+        if not rln.verify_batch([p for p, _ in out], [v for _, v in out]):
+            raise AssertionError("a facade batch failed verify_batch")
+        batches.append(out)
+    if RLN.recover_id_secret(batches[0][0][1], batches[1][0][1]) != sec[0]:
+        raise AssertionError("recover_id_secret did not give member 0's secret")
+    log(f"  RLN.stateless() ready in {setup_s:.1f} s; {BATCH} facade proofs from the tree's "
+        f"paths, first batch {seconds[0]:.3f} s ({BATCH / seconds[0]:.3f} proofs/s), second "
+        f"(warm) batch {seconds[1]:.3f} s ({BATCH / seconds[1]:.3f} proofs/s): each verifies, "
+        f"each batch by verify_batch, each against the tree's root by verify_with_roots; "
+        f"member 0's two signals in one epoch give its secret back (recover_id_secret)")
+    stateful = RLN.stateful()
+    secret, commitment = keygen()
+    stateful.set_leaf(7, poseidon_hash_pair(commitment, USER_LIMIT))
+    mp = stateful.get_merkle_proof(7)
+    signal = hash_to_field_le(b"hello")
+    w = RLNWitnessInput.new_single(secret, USER_LIMIT, 1, mp.get_path_elements(),
+                                   mp.get_path_index(), signal, ext)
+    proof, values = stateful.generate_proof(w)
+    stateful.verify_rln_proof(proof, values, signal)
+    log("  README quick start on RLN.stateful(): keygen, set_leaf, get_merkle_proof, "
+        "generate_proof, verify_rln_proof")
+    return {"first_s": seconds[0], "warm_s": seconds[1]}
+
+
+def phase_tree(rng, checks: KernelChecks, chip, smi: str) -> dict:
+    """Phase 10. The main path (launch counters at 0 before, read after):
+    the member tree and the facade on 16 of its members. Then the tree's
+    warm rebuild timed over 3 runs by CUDA events, the native parity
+    checks (on 64 sampled members, the facade's 16 among them), and P1
+    against its plain version:
+    the tree's own leaf level in place (2^19 pairs, the JSON entry, timed by
+    device_ms with its bound), the main path's two commitment calls on
+    their own inputs (2^20 lanes: t = 2, and t = 3 with the limit at lane
+    stride 0), t = 2, 3, 4 at 4096 lanes and t = 9 at 1024
+    on seeded inputs with edge lanes (numpy seed 20), and the strided call
+    form against copied lefts and rights."""
+    from zerokit_tpu_torch.hash import poseidon_kernels as pk
+    from zerokit_tpu_torch.runtime.profiling import (device_ms, host_call, kernel_bound,
+                                                     launch_counts, reset_launches)
+
+    idx = np.sort(rng.choice(1 << TREE_DEPTH, size=64, replace=False))
+    paths = [int(i) for i in idx[:: 64 // BATCH]]
+    reset_launches()
+    tree, secrets, rate, commitments = build_member_tree(rng)
+    torch.cuda.synchronize()
+    build_counts = launch_counts()
+    nodes = sum(lv.numel() for lv in tree._levels) // 16
+    log(f"  depth-{TREE_DEPTH} tree of {1 << TREE_DEPTH} members built on the card; launches "
+        f"{ {k: v for k, v in build_counts.items() if v} }; device memory of its levels "
+        f"{nodes} nodes x 64 B = {nodes * 64 / 1e6:.1f} MB")
+    facade = run_facade(tree, secrets, paths)
+    counts = launch_counts()
+    log(f"  launches in phase 10's main path (the tree, then the facade): {counts}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(3):
+        start.record()
+        tree.set_leaves_mont(0, rate)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end))
+    hashes = (1 << TREE_DEPTH) - 1
+    log(f"  warm rebuild (set_leaves_mont, {TREE_DEPTH} P1 launches) by CUDA events: "
+        + ", ".join(f"{ms:.4f}" for ms in runs) + f" ms; {hashes / (min(runs) * 1e-3) / 1e6:.3f} "
+        f"M hashes/s over {hashes} hashes; {smi}")
+    check_tree_natively(idx, tree, secrets, rate)
+
+    leaf = tree._levels[TREE_DEPTH]
+    lefts, rights = leaf[:, 0::2], leaf[:, 1::2]
+    got, kernel_s = host_call(lambda: pk.poseidon_perm([lefts, rights]))
+    want, plain_s = host_call(lambda: (pk.poseidon_perm_plain([lefts, rights]),
+                                       torch.cuda.synchronize())[0])
+    err = max_abs_err(got, want)
+    n = lefts.shape[1]
+    log(f"  P1 t=3 on the tree's leaf level in place ({n} pairs): max_abs_err {err}")
+    if err != 0:
+        raise AssertionError("P1 disagrees with its plain version on the leaf level")
+    ms = device_ms(lambda: pk.poseidon_perm([lefts, rights]), 10, kernel_s)
+    checks.record("P1", f"poseidon t=3, leaf level in place, {n} lanes", err, ms,
+                  plain_s * 1e3, {"t": 3, "lanes": n}, "calls back to back; plain: one call")
+    sec, res = kernel_bound("P1", chip, t=3, lanes=n)
+    log(f"    bound {sec * 1e3:.4f} ms ({res}), share {sec * 1e3 / ms:.1%}; {smi}")
+    for what, (ins, out) in commitments.items():
+        want = pk.poseidon_perm_plain(ins)
+        err = max_abs_err(out, want)
+        checks.errors["P1"].append(err)
+        log(f"  P1 {what}, the main path's call on its own {out.shape[1]} lanes: "
+            f"max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"P1 disagrees with its plain version on the {what}")
+    p20 = np.random.default_rng(20)
+    for t, lanes in ((2, 4096), (3, 4096), (4, 4096), (9, 1024)):
+        ins = [poseidon_inputs(p20, lanes) for _ in range(t - 1)]
+        checks.run("P1", f"poseidon t={t}, {lanes} lanes", lambda: pk.poseidon_perm(ins),
+                   lambda: pk.poseidon_perm_plain(ins), {"t": t, "lanes": lanes}, reps=3)
+    level = poseidon_inputs(p20, 8192)
+    strided = pk.poseidon_perm([level[:, 0::2], level[:, 1::2]])
+    copied = pk.poseidon_perm([level[:, 0::2].contiguous(), level[:, 1::2].contiguous()])
+    err = max_abs_err(strided, copied)
+    checks.errors["P1"].append(err)
+    log(f"  P1 strided tree-level form against copied lefts and rights "
+        f"({level.shape[1] // 2} pairs): max_abs_err {err}")
+    if err != 0:
+        raise AssertionError("P1's strided form differs from the copied form")
+    return {"counts": counts, "bound_ms": sec * 1e3, "bound_by": res,
+            "rebuild_ms": runs, **facade}
+
+
 def kernel_template(key: str, shape: dict):
     """The kernel's name as the profiler shows it (csrc template and its
     arguments), for the check's variant; None for the composite K4+K5."""
@@ -824,7 +1075,7 @@ def kernel_template(key: str, shape: dict):
         return f"witness_steps_kernel<{str(shape['rich']).lower()}>("
     if key == "W2":
         return "witness_div_kernel("
-    return None
+    return None  # P1 is not on the proving path
 
 
 def bounds(checks: KernelChecks, chip, warm: dict, profile: dict, latency: dict) -> dict:
@@ -893,10 +1144,14 @@ KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
            "witness_steps"),
     "W2": ("witness_div", "witness_kernels.cu", "zerokit_tpu/circuit/witness_eval.py:419",
            "witness_div"),
+    # the JAX package's batched Poseidon is a lax.scan, not Pallas
+    "P1": ("poseidon_perm", "poseidon.cu", "zerokit_tpu/hash/poseidon.py:132", "poseidon"),
 }
 # the kernels each proving run launches: the depth-20 graph has no Div
 DEPTH20_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5", "W1")
 MULTI_PATH = DEPTH20_PATH + ("W2",)
+# phase 10's main path: the member tree (K1, P1) and the facade's batches
+TREE_PATH = DEPTH20_PATH + ("P1",)
 
 
 def main() -> int:
@@ -1022,14 +1277,26 @@ def main() -> int:
     warm_by_key = {key: warm_counts[KERNELS[key][3]] for key in KERNELS}
     bound = bounds(checks, chip, warm_by_key, tools["profile"], tools["latency"])
 
+    # 10. the tree and the RLN API ------------------------------------------
+    log(f"[10] batched Poseidon (P1), the depth-{TREE_DEPTH} device tree of 2^{TREE_DEPTH} "
+        f"members, the RLN API over the torch prover")
+    tree = phase_tree(rng, checks, chip, smi)
+    for key in TREE_PATH:
+        if tree["counts"][KERNELS[key][3]] <= 0:
+            raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by phase 10's "
+                                 f"main path")
+    bound["P1"] = (tree["bound_ms"], tree["bound_by"])
+
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
         ms, plain_ms, what, shape = checks.times[key]
         bound_ms, res = bound[key]
         # launches: the depth-20 batch's count, W2's from the multi-message-id
-        # batch (the depth-20 graph has no Div), K6's from the tools path
+        # batch (the depth-20 graph has no Div), P1's from phase 10's tree
+        # and facade, K6's from the tools path
         main_counts = (counts if key in DEPTH20_PATH else
-                       multi_counts if key in MULTI_PATH else tools["counts"])
+                       multi_counts if key in MULTI_PATH else
+                       tree["counts"] if key in TREE_PATH else tools["counts"])
         kernels.append({
             "name": f"{kname} ({key}: {what})", "route": "cuda",
             "source": f"zerokit_tpu_torch/csrc/{src}", "replaces": replaces,
@@ -1039,6 +1306,8 @@ def main() -> int:
             "bound_ms": bound_ms, "bound_by": "bytes" if res == "hbm" else "operations",
             "library_ms": None,
         })
+        if key == "P1":
+            kernels[-1]["rebuild_ms"] = min(tree["rebuild_ms"])
         if key == "W1":  # the step chain, not the bound, sets W1's time
             kernels[-1]["ms_per_step"] = ms / shape["steps"]
             kernels[-1]["cycles_per_step"] = ms * 1e-3 * chip.sm_clock_hz / shape["steps"]

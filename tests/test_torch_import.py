@@ -26,6 +26,16 @@ VERBATIM = [
     "circuit/zkey.py",
     "circuit/witness_host.py",
     "groth16/setup.py",
+    "groth16/verifier.py",
+    "errors.py",
+    "hash/grain.py",
+    "hash/keccak.py",
+    "hash/chacha.py",
+    "protocol/identity.py",
+    "protocol/keygen.py",
+    "protocol/witness.py",
+    "protocol/proof.py",
+    "protocol/slashing.py",
 ]
 
 
@@ -44,6 +54,21 @@ def test_import_pulls_in_no_jax():
         "import zerokit_tpu_torch.tools.microbench\n"
         "import zerokit_tpu_torch.tools.profile_batch\n"
         "import zerokit_tpu_torch.tools.witness_graphs\n"
+        "import zerokit_tpu_torch.api\n"
+        "import zerokit_tpu_torch.errors\n"
+        "import zerokit_tpu_torch.hash.poseidon\n"
+        "import zerokit_tpu_torch.hash.poseidon_kernels\n"
+        "import zerokit_tpu_torch.hash.grain\n"
+        "import zerokit_tpu_torch.hash.keccak\n"
+        "import zerokit_tpu_torch.hash.chacha\n"
+        "import zerokit_tpu_torch.tree.merkle\n"
+        "import zerokit_tpu_torch.tree.batched\n"
+        "import zerokit_tpu_torch.protocol.identity\n"
+        "import zerokit_tpu_torch.protocol.keygen\n"
+        "import zerokit_tpu_torch.protocol.witness\n"
+        "import zerokit_tpu_torch.protocol.proof\n"
+        "import zerokit_tpu_torch.protocol.slashing\n"
+        "from zerokit_tpu_torch import RLN, keygen, poseidon_hash, OptimalMerkleTree\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.', 'tools.'))\n"
         "             or m in ('zerokit_tpu', 'tools', 'mxu_mont_prototype'))\n"

@@ -323,14 +323,147 @@ def test_launch_counters_cover_every_wrapper():
     counts = prof.launch_counts()
     assert set(counts) == {"mont_mul", "ec_op", "ec_add_gather", "ec_scan_gather",
                            "ec_scan_excl", "ntt_stage", "ntt_tail", "witness_steps",
-                           "witness_div", "mont_mul_tc", "chain", "latency", "roundtrip"}
+                           "witness_div", "poseidon", "mont_mul_tc", "chain", "latency",
+                           "roundtrip"}
     assert all(v == 0 for v in counts.values())
     a, b = mb.chain_inputs("add", 4, "cpu")
     mb.chain("add", a, b, 1)  # the plain version on the CPU launches nothing
     x, y = mb.latency_inputs(2, "cpu")
     mb.latency(x, y, 2)
     mb.roundtrip("shared", torch.zeros((1, 2, 4, 8), dtype=torch.int32), 2)
+    from zerokit_tpu_torch.hash import poseidon_kernels as pk
+
+    pk.poseidon_perm([torch.zeros((16, 2), dtype=torch.int32)])
     assert all(v == 0 for v in prof.launch_counts().values())
+
+
+# P1's work model: the least form of a t = 3 hash is 8 * (3 * 3 + 9) +
+# 57 * (3 + 5) products less the first round's constant lane (3 + 3) and the
+# last mix's rows 1..2 (6); P1 and its plain version run the plain form,
+# 8 * (3 * 3 + 9) + 57 * (3 + 9). t = 2 and t = 4 likewise with their RP (56)
+@pytest.mark.parametrize("t,least,plain", [(2, 409, 472), (3, 588, 828), (4, 765, 1288),
+                                           (9, 2040, 6156)])
+def test_p1_products_per_hash(t, least, plain, monkeypatch):
+    """The model's count is the least form's; the plain version makes the
+    plain form's lane-products (its products are mont_mul_sos calls; one
+    lane in, so each call's lanes are its products)."""
+    from zerokit_tpu_torch.hash import poseidon_kernels as pk
+
+    assert prof.poseidon_mont_muls(t) == least
+    seen = []
+    orig = tfield.mont_mul_sos
+
+    def counting(spec, a, b):
+        seen.append(a.numel() // 16)
+        return orig(spec, a, b)
+
+    monkeypatch.setattr(tfield, "mont_mul_sos", counting)
+    pk.poseidon_perm_plain([torch.zeros((16, 1), dtype=torch.int32)] * (t - 1))
+    assert sum(seen) == plain
+
+
+def _mat_mul(a, b):
+    return [[sum(a[i][k] * b[k][j] for k in range(len(b))) % R for j in range(len(b[0]))]
+            for i in range(len(a))]
+
+
+def _mat_inv(m):
+    """Gauss-Jordan inverse mod r."""
+    n = len(m)
+    a = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(m)]
+    for c in range(n):
+        p = next(r for r in range(c, n) if a[r][c])
+        a[c], a[p] = a[p], a[c]
+        inv = pow(a[c][c], R - 2, R)
+        a[c] = [x * inv % R for x in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(x - f * y) % R for x, y in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+def _least_form_hash(inputs, products):
+    """One Poseidon hash in the form poseidon_mont_muls counts, on Python
+    ints; `products` gets one entry a product that depends on the inputs.
+    Each partial round's matrix B (the MDS matrix M for the last one) is
+    split B = S . D, D = diag(1, B[1:, 1:]) and S sparse (row 0 and column 0
+    and the identity); D commutes with lane 0's x^5, so it moves, with the
+    round's constants, into the round before: B_prev = D . M. The last D
+    folds into the last first-half full round's matrix."""
+    from zerokit_tpu_torch.hash.poseidon import params_for_t
+
+    t = len(inputs) + 1
+    rf, rp, ark, mds = params_for_t(t)
+    mds = [list(row) for row in mds]
+    half = rf // 2
+    consts = [list(ark[r * t:(r + 1) * t]) for r in range(rf + rp)]
+    sparse, b = [None] * rp, mds
+    for k in range(rp - 1, -1, -1):
+        hat = [row[1:] for row in b[1:]]
+        sparse[k] = ([b[0][0]] + _mat_mul([b[0][1:]], _mat_inv(hat))[0],
+                     [row[0] for row in b[1:]])
+        d = [[1] + [0] * (t - 1)] + [[0] + row for row in hat]
+        consts[half + k] = [row[0] for row in _mat_mul(d, [[c] for c in consts[half + k]])]
+        b = _mat_mul(d, mds)
+
+    def mul(x, y):
+        products.append(1)
+        return x * y % R
+
+    def pow5(x):
+        x2 = mul(x, x)
+        return mul(mul(x2, x2), x)
+
+    s = [0] + [v % R for v in inputs]
+    for rnd in range(rf + rp):
+        s = [(x + c) % R for x, c in zip(s, consts[rnd])]
+        if half <= rnd < half + rp:
+            s[0] = pow5(s[0])
+            row0, col0 = sparse[rnd - half]
+            s = ([sum(mul(row0[j], s[j]) for j in range(t)) % R]
+                 + [(mul(col0[i - 1], s[0]) + s[i]) % R for i in range(1, t)])
+            continue
+        m = b if rnd == half - 1 else mds
+        rows = range(1) if rnd == rf + rp - 1 else range(t)
+        if rnd == 0:  # lane 0 is a constant: its x^5 and its column fold
+            s = [pow(s[0], 5, R)] + [pow5(x) for x in s[1:]]
+            s = [(m[i][0] * s[0] + sum(mul(m[i][j], s[j]) for j in range(1, t))) % R
+                 for i in rows]
+        else:
+            s = [pow5(x) for x in s]
+            s = [sum(mul(m[i][j], s[j]) for j in range(t)) % R for i in rows]
+    return s[0]
+
+
+@pytest.mark.parametrize("t", [2, 3, 4, 9])
+def test_p1_least_form_is_the_hash(t):
+    """The form the model counts gives the hash, in poseidon_mont_muls(t)
+    products."""
+    from zerokit_tpu_torch.hash.poseidon import poseidon_hash
+
+    rnd = random.Random(t)
+    inputs = [rnd.randrange(R) for _ in range(t - 1)]
+    products = []
+    assert _least_form_hash(inputs, products) == poseidon_hash(inputs)
+    assert len(products) == prof.poseidon_mont_muls(t)
+
+
+def test_p1_work_and_bound_pin_the_prediction():
+    """PERF.md's P1 bound: 155,232 IMADs a t = 3 hash (588 products of the
+    least form); the leaf level of a depth-20 tree (2^19 pairs) 4.87 ms,
+    IMAD-bound, its 100 MB 0.03 ms; the whole rebuild 9.7 ms, ~108 M
+    hashes/s (16.727 Top/s, 3.35 TB/s)."""
+    n = 1 << 19
+    imads, nbytes = prof.kernel_work("P1", t=3, lanes=n)
+    assert imads == n * 155232 and nbytes == n * 3 * 64
+    sec, res = prof.kernel_bound("P1", H100, t=3, lanes=n)
+    assert res == "imad" and round(sec * 1e3, 2) == 4.87
+    assert round(nbytes / H100.hbm_bytes_per_sec * 1e3, 2) == 0.03
+    rebuild = sum(prof.kernel_bound("P1", H100, t=3, lanes=1 << lv)[0] for lv in range(20))
+    assert round(rebuild * 1e3, 1) == 9.7
+    assert round(((1 << 20) - 1) / rebuild / 1e6) == 108
+    assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 409 * 264, 10 * 2 * 64)
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3, 64])

@@ -33,7 +33,7 @@ BUILD_DIR = os.path.abspath(
 )
 SOURCES = (
     "bn254.cuh", "field_kernels.cu", "ec_scan.cu", "ntt_kernels.cu", "mont_tc.cu", "microbench.cu",
-    "witness_kernels.cu",
+    "witness_kernels.cu", "poseidon.cu",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 # entry point -> argument types (a launch takes the stream as its last pointer;
 # an occupancy query ends with the int it writes)
 _SIGNATURES = {
@@ -63,6 +64,7 @@ _SIGNATURES = {
     "zk_witness_steps": (_I, _P, _P, _I, _P, _I, _I, _P, _I, _LL, _I, _I, _P),
     "zk_witness_steps_occupancy": (_I, _I, _PI),
     "zk_witness_div": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
+    "zk_poseidon": (_I, _I, _I, _P, _PLL, _PLL, _PLL, _P, _LL, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -14,7 +14,7 @@ rln/src/circuit/mod.rs:314-320).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 from ..circuit.zkey import VerifyingKey
 from ..hostmath import bn254
@@ -177,3 +177,23 @@ def verify_batch(
         return native.multi_pairing_is_one_native(pairs)
     return bn254.multi_pairing_is_one(pairs)
 
+
+def rln_public_inputs(values) -> List[int]:
+    """Order proof values into circuit public inputs.
+
+    Single: [y, root, nullifier, x, external_nullifier]
+    Multi:  [ys..., root, nullifiers..., x, external_nullifier, selectors...]
+    (reference: rln/src/protocol/proof.rs:861-886, zk.rs:106-123)
+    """
+    from ..protocol.proof import RLNProofValues  # local import to avoid cycle
+
+    assert isinstance(values, RLNProofValues)
+    if values.is_single:
+        return [values.y, values.root, values.nullifier, values.x, values.external_nullifier]
+    inputs: List[int] = list(values.ys)
+    inputs.append(values.root)
+    inputs.extend(values.nullifiers)
+    inputs.append(values.x)
+    inputs.append(values.external_nullifier)
+    inputs.extend(1 if u else 0 for u in values.selector_used)
+    return inputs

@@ -2,9 +2,11 @@
 
 Loads librln_native.so if present: first the copy built by `python -m
 zerokit_tpu_torch.runtime.build` into build/zerokit_tpu_torch/, then the
-tracked native/librln_native.so. Exposes the host pairing, the small host
-MSMs and the batched Groth16 blinding assembly. Callers fall back to the
-pure-Python implementations when no library loads.
+tracked native/librln_native.so. Installs the Poseidon parameters generated
+by the shared Grain-LFSR code and exposes the host Poseidon, keccak and
+Merkle root, the host pairing, the small host MSMs and the batched Groth16
+blinding assembly. Callers fall back to the pure-Python implementations
+when no library loads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ _LIB_PATHS = [
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_path: Optional[str] = None
+_initialized_t: set = set()
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -68,6 +71,74 @@ def ensure_loaded(log=print) -> None:
     log(f"native: {os.path.relpath(loaded_path())} (assembly: "
         f"{'native batched' if assemble_available() else 'python'}, pairing: "
         f"{'native' if pairing_available() else 'python'})")
+
+
+def _ensure_params(t: int) -> bool:
+    lib = _load()
+    if lib is None:
+        return False
+    if t in _initialized_t:
+        return True
+    from ..hash.poseidon import params_for_t
+
+    try:
+        rf, rp, ark, mds = params_for_t(t)
+    except Exception:
+        return False
+    ark_bytes = b"".join(int(v).to_bytes(32, "little") for v in ark)
+    mds_bytes = b"".join(
+        int(v).to_bytes(32, "little") for row in mds for v in row
+    )
+    rc = lib.rln_poseidon_init(t, rf, rp, ark_bytes, mds_bytes)
+    if rc != 0:
+        return False
+    _initialized_t.add(t)
+    return True
+
+
+def poseidon_hash_native(inputs: Sequence[int]) -> Optional[int]:
+    t = len(inputs) + 1
+    if not _ensure_params(t):
+        return None
+    lib = _load()
+    buf = b"".join(int(v).to_bytes(32, "little") for v in inputs)
+    out = ctypes.create_string_buffer(32)
+    if lib.rln_poseidon_hash(buf, len(inputs), out) != 0:
+        return None
+    return int.from_bytes(out.raw, "little")
+
+
+def poseidon_hash_pairs_native(
+    lefts: Sequence[int], rights: Sequence[int]
+) -> Optional[List[int]]:
+    if not _ensure_params(3):
+        return None
+    lib = _load()
+    lbuf = b"".join(int(v).to_bytes(32, "little") for v in lefts)
+    rbuf = b"".join(int(v).to_bytes(32, "little") for v in rights)
+    out = ctypes.create_string_buffer(32 * len(lefts))
+    if lib.rln_poseidon_hash_pairs(lbuf, rbuf, len(lefts), out) != 0:
+        return None
+    raw = out.raw
+    return [
+        int.from_bytes(raw[i * 32 : (i + 1) * 32], "little") for i in range(len(lefts))
+    ]
+
+
+def merkle_compute_root_native(
+    leaf: int, path_elems: Sequence[int], path_bits: Sequence[int]
+) -> Optional[int]:
+    if not _ensure_params(3):
+        return None
+    lib = _load()
+    ebuf = b"".join(int(v).to_bytes(32, "little") for v in path_elems)
+    bbuf = bytes(int(b) & 1 for b in path_bits)
+    out = ctypes.create_string_buffer(32)
+    if lib.rln_merkle_compute_root(
+        int(leaf).to_bytes(32, "little"), ebuf, bbuf, len(path_elems), out
+    ) != 0:
+        return None
+    return int.from_bytes(out.raw, "little")
 
 
 def keccak256_native(data: bytes) -> Optional[bytes]:

@@ -18,7 +18,8 @@ Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
     from the Montgomery products a proof needs and the card's 32-bit
     integer multiply rate.
   * kernel_work() / kernel_bound(): the multiplies and bytes of one call of
-    each kernel K1-K6, W1-W2 and the least time the card could take for it.
+    each kernel K1-K6, W1-W2, P1 and the least time the card could take for
+    it.
 """
 
 from __future__ import annotations
@@ -161,12 +162,14 @@ def l2_cold(call, *inputs):
 
 def _counted_modules():
     """The modules whose kernel wrappers keep a launch counter: K1-K5 (ff),
-    W1-W2 (circuit), K6 and the microbenchmark's chain (tools)."""
+    W1-W2 (circuit), P1 (hash), K6 and the microbenchmark's chain (tools)."""
     from ..circuit import witness_kernels
     from ..ff import field_kernels, ntt_kernels
+    from ..hash import poseidon_kernels
     from ..tools import microbench, tc_mont_prototype
 
-    return field_kernels, ntt_kernels, witness_kernels, tc_mont_prototype, microbench
+    return (field_kernels, ntt_kernels, witness_kernels, poseidon_kernels, tc_mont_prototype,
+            microbench)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -393,6 +396,23 @@ def speed_of_light(chip: ChipSpec = ChipSpec(), **kwargs) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def poseidon_mont_muls(t: int) -> int:
+    """Montgomery products of one Poseidon hash of width t in its cheapest
+    known form, the least work of the function (P1 runs the plain form:
+    t^2 products for every mix). x^5 is 3 products, on t lanes in each of
+    the RF full rounds and on lane 0 in each of the RP partial rounds. A
+    full round's mix is t^2 products; a partial round's is 2t - 1, the
+    sparse factor of the MDS matrix (Grassi et al., "Poseidon", Appendix B:
+    the dense factors fold into the last first-half full round's matrix).
+    The first round's lane 0 is a constant (0 plus its round constant), so
+    its x^5 and its column of the mix cost nothing; the output is state[0],
+    so the last mix is its row 0, t products."""
+    from ..hash.poseidon import params_for_t
+
+    rf, rp, _, _ = params_for_t(t)
+    return rf * (3 * t + t * t) + rp * (3 + 2 * t - 1) - (3 + t) - (t * t - t)
+
+
 def _point_words(comps: int, coords: int) -> int:
     return LIMBS * comps * coords
 
@@ -459,6 +479,9 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      and lane; three int32 indices a Div,
                                      two operands read and one value written
                                      a Div and lane
+      P1 t, lanes                    poseidon_perm: poseidon_mont_muls(t) a
+                                     lane; t - 1 inputs read and one output
+                                     written, 64 B each, a lane
     """
     w = WORD
     if key == "K1":
@@ -517,6 +540,9 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
         divs, lanes = shape["divs"], shape["lanes"]
         return (divs * lanes * WITNESS_DIV_MONT_MULS * MONT_MUL_IMADS,
                 3 * w * divs + 3 * SLOT_BYTES * divs * lanes)
+    if key == "P1":
+        t, lanes = shape["t"], shape["lanes"]
+        return lanes * poseidon_mont_muls(t) * MONT_MUL_IMADS, lanes * t * LIMBS * w
     raise ValueError(f"unknown kernel {key!r}")
 
 
