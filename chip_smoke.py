@@ -50,10 +50,13 @@ DeviceMerkleTree of them (its warm rebuild of 20 P1 launches timed), its
 leaves, paths and a depth-14 tree held against the native host library,
 then RLN.stateless() proving two batches of 16 from the tree's paths
 (verify, verify_batch, verify_with_roots, recover_id_secret) and the README
-quick start on RLN.stateful(); then P1 against its plain version on the
-tree's own leaf level in place, on the id and rate commitment calls at
-their own 2^20 lanes, at t = 2, 3, 4 and 9 with edge lanes, and in its
-strided form against copied inputs. Times are CUDA-event times of calls run back
+quick start on RLN.stateful(); then the warm rebuild's time and each
+level's P1 call beside its bound (tools/profile_tree), and P1 (the sparse
+partial-round form) against its dense plain version at every launch shape
+it picks: on the tree's own leaf level and two upper levels in place, on
+the id and rate commitment calls at their own 2^20 lanes, at every
+t = 2..9 from 1 to 4096 lanes with edge lanes, and in its strided form
+against copied inputs. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -817,6 +820,8 @@ def phase_tools_path(rng, prover, chip_label: str) -> dict:
 TREE_DEPTH = 20  # the tree users run: 2^20 leaves, the depth-20 circuit's
 NATIVE_DEPTH = 14  # the device tree rebuilt level by level natively
 USER_LIMIT = 100  # userMessageLimit of every member
+P1_LANES = (1, 7, 255, 4096)  # P1's checks at every t: below a warp to 128 warps
+P1_TIMED = 4096
 
 
 def poseidon_edge_values() -> list:
@@ -969,18 +974,24 @@ def run_facade(tree, secrets, paths) -> dict:
 def phase_tree(rng, checks: KernelChecks, chip, smi: str) -> dict:
     """Phase 10. The main path (launch counters at 0 before, read after):
     the member tree and the facade on 16 of its members. Then the tree's
-    warm rebuild timed over 3 runs by CUDA events, the native parity
-    checks (on 64 sampled members, the facade's 16 among them), and P1
-    against its plain version:
-    the tree's own leaf level in place (2^19 pairs, the JSON entry, timed by
-    device_ms with its bound), the main path's two commitment calls on
-    their own inputs (2^20 lanes: t = 2, and t = 3 with the limit at lane
-    stride 0), t = 2, 3, 4 at 4096 lanes and t = 9 at 1024
+    warm rebuild timed over 3 runs by CUDA events with its bound, each
+    level's own P1 call timed by device_ms with its bound and launch shape
+    (tools/profile_tree), the native parity checks (on 64 sampled members,
+    the facade's 16 among them), and P1 against its dense plain version at
+    every launch shape launch_shape picks: the tree's own leaf level in
+    place (2^19 pairs, 8-warp blocks; the JSON entry, timed by device_ms
+    with its bound), its levels of 2^15 and 2^14 pairs (4- and 2-warp
+    blocks) and 2^13 pairs (4 threads a hash in 4-warp blocks), the main
+    path's two commitment calls on their own inputs (2^20 lanes: t = 2,
+    and t = 3 with the limit at lane stride 0), every t = 2..9 at P1_LANES
+    (group_of(t) threads a hash in 1- and 2-warp blocks; a thread a hash in
+    one-warp blocks at t = 9, 4096 lanes; timed with its bound at P1_TIMED)
     on seeded inputs with edge lanes (numpy seed 20), and the strided call
     form against copied lefts and rights."""
     from zerokit_tpu_torch.hash import poseidon_kernels as pk
     from zerokit_tpu_torch.runtime.profiling import (device_ms, host_call, kernel_bound,
                                                      launch_counts, reset_launches)
+    from zerokit_tpu_torch.tools.profile_tree import level_times, print_levels, rebuild_ms
 
     idx = np.sort(rng.choice(1 << TREE_DEPTH, size=64, replace=False))
     paths = [int(i) for i in idx[:: 64 // BATCH]]
@@ -995,48 +1006,65 @@ def phase_tree(rng, checks: KernelChecks, chip, smi: str) -> dict:
     facade = run_facade(tree, secrets, paths)
     counts = launch_counts()
     log(f"  launches in phase 10's main path (the tree, then the facade): {counts}")
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    runs = []
-    for _ in range(3):
-        start.record()
-        tree.set_leaves_mont(0, rate)
-        end.record()
-        end.synchronize()
-        runs.append(start.elapsed_time(end))
+    runs = rebuild_ms(tree, rate)
     hashes = (1 << TREE_DEPTH) - 1
+    levels = level_times(tree, chip)
+    rebuild_bound = sum(r["bound_ms"] for r in levels)
     log(f"  warm rebuild (set_leaves_mont, {TREE_DEPTH} P1 launches) by CUDA events: "
         + ", ".join(f"{ms:.4f}" for ms in runs) + f" ms; {hashes / (min(runs) * 1e-3) / 1e6:.3f} "
-        f"M hashes/s over {hashes} hashes; {smi}")
+        f"M hashes/s over {hashes} hashes; bound {rebuild_bound:.4f} ms, share "
+        f"{rebuild_bound / min(runs):.1%}; {smi}")
+    log("  each level's own P1 call on the tree's levels in place (device_ms, 10 calls):")
+    print_levels(levels, smi)
+    sms = chip.sm_count
+    log("  launch shape a level (blocks x threads a block / threads a hash): " + ", ".join(
+        "{}: {} x {} / {}".format(r["level"], *pk.launch_shape(r["lanes"], sms, 3))
+        for r in levels))
     check_tree_natively(idx, tree, secrets, rate)
+
+    def check(what: str, ins: list, got=None, want=None) -> int:
+        """P1 (or its output `got`) against the dense plain version (or its
+        output `want`)."""
+        got = pk.poseidon_perm(ins) if got is None else got
+        want = pk.poseidon_perm_plain(ins) if want is None else want
+        err = max_abs_err(got, want)
+        checks.errors.setdefault("P1", []).append(err)
+        blocks, threads, group = pk.launch_shape(got.shape[1], sms, len(ins) + 1)
+        log(f"  P1 {what} ({blocks} x {threads} threads, {group} a hash): max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"P1 disagrees with its plain version: {what}")
+        return err
 
     leaf = tree._levels[TREE_DEPTH]
     lefts, rights = leaf[:, 0::2], leaf[:, 1::2]
+    n = lefts.shape[1]
     got, kernel_s = host_call(lambda: pk.poseidon_perm([lefts, rights]))
     want, plain_s = host_call(lambda: (pk.poseidon_perm_plain([lefts, rights]),
                                        torch.cuda.synchronize())[0])
-    err = max_abs_err(got, want)
-    n = lefts.shape[1]
-    log(f"  P1 t=3 on the tree's leaf level in place ({n} pairs): max_abs_err {err}")
-    if err != 0:
-        raise AssertionError("P1 disagrees with its plain version on the leaf level")
+    err = check(f"t=3 on the tree's leaf level in place ({n} pairs)", [lefts, rights], got,
+                want)
     ms = device_ms(lambda: pk.poseidon_perm([lefts, rights]), 10, kernel_s)
     checks.record("P1", f"poseidon t=3, leaf level in place, {n} lanes", err, ms,
                   plain_s * 1e3, {"t": 3, "lanes": n}, "calls back to back; plain: one call")
     sec, res = kernel_bound("P1", chip, t=3, lanes=n)
     log(f"    bound {sec * 1e3:.4f} ms ({res}), share {sec * 1e3 / ms:.1%}; {smi}")
+    for lv in (15, 14, 13):  # a thread a hash in 4- and 2-warp blocks; 4 threads a hash
+        level = tree._levels[lv + 1]
+        check(f"t=3 on the tree's level {lv} in place ({level.shape[1] // 2} pairs)",
+              [level[:, 0::2], level[:, 1::2]])
     for what, (ins, out) in commitments.items():
-        want = pk.poseidon_perm_plain(ins)
-        err = max_abs_err(out, want)
-        checks.errors["P1"].append(err)
-        log(f"  P1 {what}, the main path's call on its own {out.shape[1]} lanes: "
-            f"max_abs_err {err}")
-        if err != 0:
-            raise AssertionError(f"P1 disagrees with its plain version on the {what}")
+        check(f"{what}, the main path's call on its own {out.shape[1]} lanes", ins, out)
     p20 = np.random.default_rng(20)
-    for t, lanes in ((2, 4096), (3, 4096), (4, 4096), (9, 1024)):
-        ins = [poseidon_inputs(p20, lanes) for _ in range(t - 1)]
-        checks.run("P1", f"poseidon t={t}, {lanes} lanes", lambda: pk.poseidon_perm(ins),
-                   lambda: pk.poseidon_perm_plain(ins), {"t": t, "lanes": lanes}, reps=3)
+    for t in range(2, 10):
+        for lanes in P1_LANES:
+            ins = [poseidon_inputs(p20, lanes) for _ in range(t - 1)]
+            if lanes != P1_TIMED:
+                check(f"t={t}, {lanes} lanes", ins)
+                continue
+            checks.run("P1", f"poseidon t={t}, {lanes} lanes", lambda: pk.poseidon_perm(ins),
+                       lambda: pk.poseidon_perm_plain(ins), {"t": t, "lanes": lanes}, reps=3)
+            b_sec, _ = kernel_bound("P1", chip, t=t, lanes=lanes)
+            log(f"    bound {b_sec * 1e3:.4f} ms, share {b_sec * 1e3 / checks.rows[-1][2]:.1%}")
     level = poseidon_inputs(p20, 8192)
     strided = pk.poseidon_perm([level[:, 0::2], level[:, 1::2]])
     copied = pk.poseidon_perm([level[:, 0::2].contiguous(), level[:, 1::2].contiguous()])
@@ -1047,7 +1075,8 @@ def phase_tree(rng, checks: KernelChecks, chip, smi: str) -> dict:
     if err != 0:
         raise AssertionError("P1's strided form differs from the copied form")
     return {"counts": counts, "bound_ms": sec * 1e3, "bound_by": res,
-            "rebuild_ms": runs, **facade}
+            "rebuild_ms": runs, "rebuild_bound_ms": rebuild_bound,
+            "levels_ms": [r["ms"] for r in levels], **facade}
 
 
 def kernel_template(key: str, shape: dict):
@@ -1308,6 +1337,8 @@ def main() -> int:
         })
         if key == "P1":
             kernels[-1]["rebuild_ms"] = min(tree["rebuild_ms"])
+            kernels[-1]["rebuild_bound_ms"] = tree["rebuild_bound_ms"]
+            kernels[-1]["levels_ms"] = tree["levels_ms"]
         if key == "W1":  # the step chain, not the bound, sets W1's time
             kernels[-1]["ms_per_step"] = ms / shape["steps"]
             kernels[-1]["cycles_per_step"] = ms * 1e-3 * chip.sm_clock_hz / shape["steps"]

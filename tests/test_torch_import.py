@@ -53,6 +53,7 @@ def test_import_pulls_in_no_jax():
         "import zerokit_tpu_torch.tools.tc_mont_prototype\n"
         "import zerokit_tpu_torch.tools.microbench\n"
         "import zerokit_tpu_torch.tools.profile_batch\n"
+        "import zerokit_tpu_torch.tools.profile_tree\n"
         "import zerokit_tpu_torch.tools.witness_graphs\n"
         "import zerokit_tpu_torch.api\n"
         "import zerokit_tpu_torch.errors\n"

@@ -5,7 +5,9 @@ field values compare as integers, exactly. P1 itself (csrc/poseidon.cu) runs
 only on the card: chip_smoke.py holds it against poseidon_perm_plain there.
 Here CPU tensors take the plain version, which is held against the JAX
 package's batched permutation (a jitted lax.scan on XLA:CPU) at t = 2, 3, 4
-and against the host hash at t = 9.
+and against the host hash at t = 9; P1's constant table is walked on Python
+integers in the kernel's order, and its launch-shape rule run as the pure
+function it is.
 """
 
 import random
@@ -167,15 +169,209 @@ def test_strided_level_form_equals_copied_form(form):
     np.testing.assert_array_equal(to_numpy_limbs(strided), want)
 
 
+def _table_ints(t: int) -> list:
+    words = pk._table(t, "cpu").numpy().view(np.uint32).reshape(-1, 8)
+    return [int.from_bytes(w.astype("<u4").tobytes(), "little") for w in words]
+
+
 def test_kernel_table_is_the_montgomery_constants():
-    """P1's constant table: (RF + RP) x t round constants, then t x t MDS,
-    each the Montgomery form of params_for_t's value."""
+    """P1's constant table: RF x t full-round constants, RP lane-0
+    constants, M, B, then RP x (2t - 1) sparse entries, each the Montgomery
+    form of sparse_form's value; M is params_for_t's MDS matrix, and the
+    full rounds whose constants nothing folds into keep params_for_t's."""
     for t in (2, 3, 9):
         rf, rp, ark, mds = pos.params_for_t(t)
-        words = pk._table(t, "cpu").numpy().view(np.uint32).reshape(-1, 8)
-        assert words.shape[0] == (rf + rp) * t + t * t
-        vals = [int.from_bytes(w.astype("<u4").tobytes(), "little") for w in words]
-        assert vals == [FR.to_mont_int(v) for v in list(ark) + [x for row in mds for x in row]]
+        form = pk.sparse_form(t)
+        vals = _table_ints(t)
+        assert len(vals) == rf * t + rp + 2 * t * t + rp * (2 * t - 1)
+        assert vals == pk.table_values(t)
+        mont = [FR.from_mont_int(v) for v in vals]
+        full = [mont[r * t:(r + 1) * t] for r in range(rf)]
+        m_at = rf * t + rp
+        assert [mont[m_at + i * t:m_at + (i + 1) * t] for i in range(t)] == [list(r) for r in mds]
+        assert full == form.full_ark and mont[rf * t:m_at] == form.part_ark
+        half = rf // 2
+        for r in [0] + list(range(2, half)) + list(range(half + 1, rf)):
+            assert full[r] == list(ark[(r if r < half else r + rp) * t:][:t])
+
+
+def walk_table(t: int, state: list, products: list) -> int:
+    """P1's permutation on Python ints in the kernel's exact order, from
+    the table's Montgomery words: state is [0, inputs...] in Montgomery
+    form, each Montgomery product appends to `products`; returns state[0]
+    in Montgomery form."""
+    rf, rp = pk.sparse_form(t).rf, pk.sparse_form(t).rp
+    vals, at = _table_ints(t), 0
+
+    def take(k):
+        nonlocal at
+        at += k
+        return vals[at - k:at]
+
+    ark = [take(t) for _ in range(rf)]
+    part = take(rp)
+    mds, first = [take(t) for _ in range(t)], [take(t) for _ in range(t)]
+    sparse = [(take(t), take(t - 1)) for _ in range(rp)]
+    assert at == len(vals)
+    rinv = pow(2 ** 256, -1, R)
+
+    def mul(a, b):
+        products.append(1)
+        return a * b * rinv % R
+
+    def pow5(x):
+        x2 = mul(x, x)
+        return mul(mul(x2, x2), x)
+
+    def full(s, r, m, k0, rows):
+        s = s[:k0] + [pow5((x + c) % R) for x, c in zip(s[k0:], ark[r][k0:])]
+        return [sum(mul(m[i][j], s[j]) for j in range(k0, t)) % R for i in range(rows)]
+
+    half, s = rf // 2, list(state)
+    s = full(s, 0, mds, 1, t)
+    for r in range(1, half):
+        s = full(s, r, first if r == half - 1 else mds, 0, t)
+    for k in range(rp):
+        row0, col0 = sparse[k]
+        acc = sum(mul(row0[j], s[j]) for j in range(1, t))
+        x = pow5((s[0] + part[k]) % R)
+        s = [(acc + mul(row0[0], x)) % R] + [(s[i] + mul(col0[i - 1], x)) % R
+                                              for i in range(1, t)]
+    for r in range(half, rf):
+        s = full(s, r, mds, 0, 1 if r == rf - 1 else t)
+    return s[0]
+
+
+@pytest.mark.parametrize("t", range(2, 10))
+def test_kernel_table_walk_is_the_hash(t, no_native):
+    """The table P1 reads, walked in the kernel's order, gives the host
+    poseidon_hash on the edge lanes (every input at the same edge value)
+    and on seeded inputs, in exactly poseidon_mont_muls(t) products."""
+    from zerokit_tpu_torch.runtime.profiling import poseidon_mont_muls
+
+    rnd = random.Random(200 + t)
+    lanes = [[v] * (t - 1) for v in edge_lanes()]
+    lanes += [[rnd.randrange(R) for _ in range(t - 1)] for _ in range(2)]
+    for mont in lanes:
+        products = []
+        got = walk_table(t, [0] + mont, products)
+        assert len(products) == poseidon_mont_muls(t)
+        want = pos.poseidon_hash([FR.from_mont_int(v) for v in mont])
+        assert FR.from_mont_int(got) == want
+
+
+def walk_group(t: int, state: list) -> tuple:
+    """P1's group form (poseidon_group_kernel) on Python ints: group_of(t)
+    threads, thread k holding state lane k (threads from t on shadow lane
+    t - 1), a shuffle reading another thread's value. Returns (thread 0's
+    state[0], the product steps a thread runs in turn)."""
+    rf, rp = pk.sparse_form(t).rf, pk.sparse_form(t).rp
+    g = pk.group_of(t)
+    vals, at = _table_ints(t), 0
+
+    def take(k):
+        nonlocal at
+        at += k
+        return vals[at - k:at]
+
+    ark, part = [take(t) for _ in range(rf)], take(rp)
+    mds, first = [take(t) for _ in range(t)], [take(t) for _ in range(t)]
+    sparse = [take(2 * t - 1) for _ in range(rp)]
+    rinv = pow(2 ** 256, -1, R)
+    steps = 0
+
+    def mul(a, b):  # one product step on every thread
+        nonlocal steps
+        steps += 1
+        return [x * y * rinv % R for x, y in zip(a, b)]
+
+    def pow5(x):
+        x2 = mul(x, x)
+        return mul(mul(x2, x2), x)
+
+    kk = [min(k, t - 1) for k in range(g)]
+    s = [state[k] for k in kk]
+    s[t:] = [0] * (g - t)
+
+    def full(s, r, m, j0):
+        x = pow5([(v + ark[r][kk[k]]) % R for k, v in enumerate(s)])
+        acc = [0] * g
+        for j in range(j0, t):
+            prod = mul([m[kk[k]][j] for k in range(g)], [x[j]] * g)
+            acc = [(a + p) % R for a, p in zip(acc, prod)]
+        return acc
+
+    s = full(s, 0, mds, 1)
+    for r in range(1, rf):
+        if r == rf // 2:
+            for c, sp in zip(part, sparse):
+                x = (s[0] + c) % R
+                a = [x] + [sp[kk[k]] for k in range(1, g)]
+                p = mul(a, [x] + s[1:])
+                x5 = mul(mul(p, p), [x] * g)[0]  # thread 0 alone
+                q = mul([sp[0]] + [sp[t + kk[k] - 1] for k in range(1, g)], [x5] * g)
+                row = (q[0] + sum(p[1:t])) % R
+                s = [row] + [(v + w) % R for v, w in zip(s[1:], q[1:])]
+        s = full(s, r, first if r == rf // 2 - 1 else mds, 0)
+    return s[0], steps
+
+
+@pytest.mark.parametrize("t", range(2, 10))
+def test_group_form_is_the_hash(t, no_native):
+    """The group form gives the host poseidon_hash on edge and seeded
+    inputs, its threads running RF (3 + t) - 1 + 4 RP product steps in turn
+    (275 at t = 3, where one thread a hash runs 588)."""
+    rnd = random.Random(300 + t)
+    lanes = [[v] * (t - 1) for v in edge_lanes()[:4]]
+    lanes += [[rnd.randrange(R) for _ in range(t - 1)]]
+    rf, rp = pk.sparse_form(t).rf, pk.sparse_form(t).rp
+    for mont in lanes:
+        got, steps = walk_group(t, [0] + mont)
+        assert steps == rf * (3 + t) - 1 + 4 * rp
+        assert FR.from_mont_int(got) == pos.poseidon_hash([FR.from_mont_int(v) for v in mont])
+
+
+SHAPE_LANES = [1, 2, 255, 256, 4096, 1 << 15, 1 << 19]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("t", [2, 3, 9])
+def test_launch_shape_covers_every_lane_and_spreads_first(t, sms):
+    """launch_shape over the sizes a tree's levels and the commitment calls
+    give: every hash's threads in one warp and every thread of the call in
+    one block's range exactly once, whole warps up to 8 a block; with
+    blocks placed one an SM in turn, no SM holds more than 4 warps (one a
+    scheduler) while another SM is idle; a hash takes group_of(t) threads
+    exactly where that leaves every scheduler at most two warps."""
+    for n in SHAPE_LANES:
+        blocks, threads, g = pk.launch_shape(n, sms, t)
+        assert g in (1, pk.group_of(t)) and pk.WARP % g == 0
+        assert threads % pk.WARP == 0 and threads // pk.WARP in (1, 2, 4, 8)
+        assert (blocks - 1) * threads < n * g <= blocks * threads
+        assert (g > 1) == (-(-n * pk.group_of(t) // pk.WARP) <= 8 * sms)
+        per_sm = [0] * sms
+        for b in range(blocks):
+            per_sm[b % sms] += threads // pk.WARP
+        if max(per_sm) > 4:
+            assert min(per_sm) > 0, (n, sms)
+
+
+def test_launch_shape_at_the_tree_levels():
+    """The depth-20 tree's levels (t = 3) on 132 SMs: a thread a hash in
+    8-warp blocks from 2^16 hashes, 4 at 2^15, 2 at 2^14; 4 threads a hash
+    from 2^13 down."""
+    assert [pk.group_of(t) for t in range(2, 10)] == [2, 4, 4, 8, 8, 8, 8, 16]
+    assert pk.launch_shape(1 << 19, 132, 3) == (2048, 256, 1)
+    assert pk.launch_shape(1 << 16, 132, 3) == (256, 256, 1)
+    assert pk.launch_shape(1 << 15, 132, 3) == (256, 128, 1)
+    assert pk.launch_shape(1 << 14, 132, 3) == (256, 64, 1)
+    assert pk.launch_shape(1 << 13, 132, 3) == (256, 128, 4)
+    assert pk.launch_shape(1 << 12, 132, 3) == (256, 64, 4)
+    assert pk.launch_shape(1 << 10, 132, 3) == (128, 32, 4)
+    assert pk.launch_shape(1, 132, 3) == (1, 32, 4)
+    assert pk.launch_shape(4096, 132, 9) == (128, 32, 1)
+    assert pk.launch_shape(4096, 132, 8) == (256, 128, 8)
+    assert pk.launch_shape(4096, 1, 3) == (16, 256, 1)
 
 
 @pytest.mark.parametrize("fn", ["poseidon_hash_native", "poseidon_hash_pairs_native",

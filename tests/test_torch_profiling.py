@@ -339,13 +339,14 @@ def test_launch_counters_cover_every_wrapper():
 
 # P1's work model: the least form of a t = 3 hash is 8 * (3 * 3 + 9) +
 # 57 * (3 + 5) products less the first round's constant lane (3 + 3) and the
-# last mix's rows 1..2 (6); P1 and its plain version run the plain form,
-# 8 * (3 * 3 + 9) + 57 * (3 + 9). t = 2 and t = 4 likewise with their RP (56)
+# last mix's rows 1..2 (6), the form P1 runs; its plain version runs the
+# dense form, 8 * (3 * 3 + 9) + 57 * (3 + 9). t = 2 and t = 4 likewise with
+# their RP (56)
 @pytest.mark.parametrize("t,least,plain", [(2, 409, 472), (3, 588, 828), (4, 765, 1288),
                                            (9, 2040, 6156)])
 def test_p1_products_per_hash(t, least, plain, monkeypatch):
     """The model's count is the least form's; the plain version makes the
-    plain form's lane-products (its products are mont_mul_sos calls; one
+    dense form's lane-products (its products are mont_mul_sos calls; one
     lane in, so each call's lanes are its products)."""
     from zerokit_tpu_torch.hash import poseidon_kernels as pk
 
@@ -362,50 +363,19 @@ def test_p1_products_per_hash(t, least, plain, monkeypatch):
     assert sum(seen) == plain
 
 
-def _mat_mul(a, b):
-    return [[sum(a[i][k] * b[k][j] for k in range(len(b))) % R for j in range(len(b[0]))]
-            for i in range(len(a))]
-
-
-def _mat_inv(m):
-    """Gauss-Jordan inverse mod r."""
-    n = len(m)
-    a = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(m)]
-    for c in range(n):
-        p = next(r for r in range(c, n) if a[r][c])
-        a[c], a[p] = a[p], a[c]
-        inv = pow(a[c][c], R - 2, R)
-        a[c] = [x * inv % R for x in a[c]]
-        for r in range(n):
-            if r != c and a[r][c]:
-                f = a[r][c]
-                a[r] = [(x - f * y) % R for x, y in zip(a[r], a[c])]
-    return [row[n:] for row in a]
-
-
 def _least_form_hash(inputs, products):
     """One Poseidon hash in the form poseidon_mont_muls counts, on Python
-    ints; `products` gets one entry a product that depends on the inputs.
-    Each partial round's matrix B (the MDS matrix M for the last one) is
-    split B = S . D, D = diag(1, B[1:, 1:]) and S sparse (row 0 and column 0
-    and the identity); D commutes with lane 0's x^5, so it moves, with the
-    round's constants, into the round before: B_prev = D . M. The last D
-    folds into the last first-half full round's matrix."""
-    from zerokit_tpu_torch.hash.poseidon import params_for_t
+    ints, from the package's builder (hash/poseidon_kernels.sparse_form,
+    the form P1's table holds); `products` gets one entry a product that
+    depends on the inputs. Each partial round is lane 0's constant and
+    x^5, then its sparse factor: row 0 dotted with the state, column 0
+    times the new lane 0 added to lanes 1..; round 0's lane 0 (a constant)
+    is folded into round 1's constants; the last round's mix is row 0."""
+    from zerokit_tpu_torch.hash.poseidon_kernels import sparse_form
 
     t = len(inputs) + 1
-    rf, rp, ark, mds = params_for_t(t)
-    mds = [list(row) for row in mds]
-    half = rf // 2
-    consts = [list(ark[r * t:(r + 1) * t]) for r in range(rf + rp)]
-    sparse, b = [None] * rp, mds
-    for k in range(rp - 1, -1, -1):
-        hat = [row[1:] for row in b[1:]]
-        sparse[k] = ([b[0][0]] + _mat_mul([b[0][1:]], _mat_inv(hat))[0],
-                     [row[0] for row in b[1:]])
-        d = [[1] + [0] * (t - 1)] + [[0] + row for row in hat]
-        consts[half + k] = [row[0] for row in _mat_mul(d, [[c] for c in consts[half + k]])]
-        b = _mat_mul(d, mds)
+    form = sparse_form(t)
+    half = form.rf // 2
 
     def mul(x, y):
         products.append(1)
@@ -416,23 +386,17 @@ def _least_form_hash(inputs, products):
         return mul(mul(x2, x2), x)
 
     s = [0] + [v % R for v in inputs]
-    for rnd in range(rf + rp):
-        s = [(x + c) % R for x, c in zip(s, consts[rnd])]
-        if half <= rnd < half + rp:
-            s[0] = pow5(s[0])
-            row0, col0 = sparse[rnd - half]
-            s = ([sum(mul(row0[j], s[j]) for j in range(t)) % R]
-                 + [(mul(col0[i - 1], s[0]) + s[i]) % R for i in range(1, t)])
-            continue
-        m = b if rnd == half - 1 else mds
-        rows = range(1) if rnd == rf + rp - 1 else range(t)
-        if rnd == 0:  # lane 0 is a constant: its x^5 and its column fold
-            s = [pow(s[0], 5, R)] + [pow5(x) for x in s[1:]]
-            s = [(m[i][0] * s[0] + sum(mul(m[i][j], s[j]) for j in range(1, t))) % R
-                 for i in rows]
-        else:
-            s = [pow5(x) for x in s]
-            s = [sum(mul(m[i][j], s[j]) for j in range(t)) % R for i in rows]
+    for r in range(form.rf):
+        if r == half:
+            for c, (row0, col0) in zip(form.part_ark, form.sparse):
+                x = pow5((s[0] + c) % R)
+                s = ([(mul(row0[0], x) + sum(mul(row0[j], s[j]) for j in range(1, t))) % R]
+                     + [(mul(col0[i - 1], x) + s[i]) % R for i in range(1, t)])
+        k0 = 1 if r == 0 else 0
+        s = s[:k0] + [pow5((x + c) % R) for x, c in zip(s[k0:], form.full_ark[r][k0:])]
+        m = form.first if r == half - 1 else form.mds
+        rows = range(1) if r == form.rf - 1 else range(t)
+        s = [sum(mul(m[i][j], s[j]) for j in range(k0, t)) % R for i in rows]
     return s[0]
 
 
@@ -450,20 +414,27 @@ def test_p1_least_form_is_the_hash(t):
 
 
 def test_p1_work_and_bound_pin_the_prediction():
-    """PERF.md's P1 bound: 155,232 IMADs a t = 3 hash (588 products of the
-    least form); the leaf level of a depth-20 tree (2^19 pairs) 4.87 ms,
-    IMAD-bound, its 100 MB 0.03 ms; the whole rebuild 9.7 ms, ~108 M
+    """PERF.md's P1 bound: 134,152 IMADs a t = 3 hash, the least form's 588
+    products with each mix row of two or more reduced once (bn254.cuh
+    mul_sum): 354 products alone (the 240 of 80 x^5's, the partial rounds'
+    114 column-0 products) at 264, round 0's 3 rows of 2 at 2 * 128 + 136, and 76 rows of 3
+    (18 in rounds 1-6, the last round's row 0, 57 partial rounds') at
+    3 * 128 + 136. The leaf level of a depth-20 tree (2^19 pairs) 4.20 ms,
+    IMAD-bound, its 100 MB 0.03 ms; the whole rebuild 8.4 ms, ~125 M
     hashes/s (16.727 Top/s, 3.35 TB/s)."""
+    assert prof.ROW_PRODUCT_IMADS + prof.ROW_REDC_IMADS == prof.MONT_MUL_IMADS
+    assert prof.poseidon_imads(3) == 354 * 264 + 3 * (2 * 128 + 136) + 76 * (3 * 128 + 136)
+    assert prof.poseidon_imads(3) == 134152
     n = 1 << 19
     imads, nbytes = prof.kernel_work("P1", t=3, lanes=n)
-    assert imads == n * 155232 and nbytes == n * 3 * 64
+    assert imads == n * 134152 and nbytes == n * 3 * 64
     sec, res = prof.kernel_bound("P1", H100, t=3, lanes=n)
-    assert res == "imad" and round(sec * 1e3, 2) == 4.87
+    assert res == "imad" and round(sec * 1e3, 2) == 4.20
     assert round(nbytes / H100.hbm_bytes_per_sec * 1e3, 2) == 0.03
     rebuild = sum(prof.kernel_bound("P1", H100, t=3, lanes=1 << lv)[0] for lv in range(20))
-    assert round(rebuild * 1e3, 1) == 9.7
-    assert round(((1 << 20) - 1) / rebuild / 1e6) == 108
-    assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 409 * 264, 10 * 2 * 64)
+    assert round(rebuild * 1e3, 1) == 8.4
+    assert round(((1 << 20) - 1) / rebuild / 1e6) == 125
+    assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 98592, 10 * 2 * 64)
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3, 64])

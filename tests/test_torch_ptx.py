@@ -152,7 +152,7 @@ def _python(name, params, lines):
 
     for line in lines:
         s = line.split("//")[0].strip()
-        if not s or s.startswith("#pragma"):
+        if not s or s.startswith(("#pragma", "static_assert")):
             continue
         if s == "}":
             depth -= 1
@@ -199,6 +199,7 @@ def core(p):
         "add8": lambda r, b: chain("add8", r=r, b=list(b)),
         "sub8": lambda r, b: chain("sub8", r=r, b=list(b)),
         "mad_row": lambda e, o, a, bi: chain("mad_row", e=e, o=o, a=list(a), bi=bi),
+        "mac_row": lambda e, o, a, bi: chain("mac_row", e=e, o=o, a=list(a), bi=bi),
         "redc_row": lambda e, o, pw, n: chain("redc_row", e=e, o=o, p=list(pw), ninv0=n),
         "merge_row": lambda r, o: chain("merge_row", r=r, o=list(o)),
     }
@@ -206,12 +207,26 @@ def core(p):
         sig = re.search(rf"Elem<F> {name}\(([^)]*)\) {{", SRC)
         params = re.findall(r"const Elem<F>& (\w+)", sig[1])
         exec(_python(name, params, _body(sig[0])), ns)
-    return {name: (lambda f: lambda *xs: num(f(*(Elem(words(x)) for x in xs)).v))(ns[name])
-            for name in ("mul", "add", "sub", "canon")}
+    body = _body("Elem<F> mul_sum(")
+    exec(_python("mul_sum", ["a", "b"], body), ns)
+    # the row before its conditional subtractions of 2p
+    cut = next(i for i, line in enumerate(body) if "s < N" in line)
+    exec(_python("mul_sum_raw", ["a", "b"], body[:cut] + ["return r;"]), ns)
+    f = {name: (lambda f: lambda *xs: num(f(*(Elem(words(x)) for x in xs)).v))(ns[name])
+         for name in ("mul", "add", "sub", "canon")}
+
+    def row(name):
+        def call(a, b):  # N = len(a), as the template argument
+            ns["N"] = len(a)
+            return num(ns[name]([Elem(words(x)) for x in a], [Elem(words(x)) for x in b]).v)
+        return call
+
+    f["mul_sum"], f["mul_sum_raw"] = row("mul_sum"), row("mul_sum_raw")
+    return f
 
 
 def test_the_header_has_the_chains_simulated_here():
-    for fname in ("add8", "sub8", "mad_row", "redc_row", "merge_row"):
+    for fname in ("add8", "sub8", "mad_row", "mac_row", "redc_row", "merge_row"):
         instrs, ops, nout = _asm(fname)
         assert instrs and nout <= len(ops) <= 30, fname  # nvcc's operand limit is 30
 
@@ -269,3 +284,38 @@ def test_w1_product_by_a_graph_constant(x):
         assert m < 2 * R and m % R == x * c % R, (hex(x), hex(c))
     if x:
         assert any(f["mul"](x, c) % R != x * c % R for c in sample)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_mul_sum_row_stays_in_range(n):
+    """mul_sum, P1's mix row with one reduction: canonical constants (r - 1
+    among them) times values in [0, 2r) at the edges of the lazy core and
+    of P1's edge lanes (r - 1, the Montgomery images of r - 1 and of values
+    near 2^253). No chain drops a carry (the accumulator stays below
+    2^288), and the row lands in [0, 2r), equal to sum a b / 2^256 mod r;
+    without its conditional subtraction a row of 3 or 4 passes 2r (the
+    range the subtraction exists for), and a row of 2, which has none,
+    stays below 2r."""
+    from zerokit_tpu_torch.ff.field import FR
+
+    rng = random.Random(n)
+    rinv = pow(2 ** 256, -1, R)
+    consts = [R - 1, R - 2, 1, 0] + [rng.randrange(R) for _ in range(4)]
+    vals = [0, 1, R - 1, R, 2 * R - 1, 2 * R - 2 ** 32, FR.to_mont_int(R - 1),
+            FR.to_mont_int((1 << 253) + 1), (1 << 253) + 1] + [rng.randrange(2 * R)
+                                                              for _ in range(4)]
+    f = core(R)
+    worst = 0
+    cases = [([consts[(k + j) % len(consts)] for j in range(n)],
+              [vals[(k + 3 * j) % len(vals)] for j in range(n)]) for k in range(len(vals))]
+    # the largest rows: r - 1 times values near 2r
+    cases += [([R - 1] * n, [2 * R - 1 - rng.randrange(1 << 250) for _ in range(n)])
+              for _ in range(24)]
+    for a, b in cases:
+        want = sum(x * y for x, y in zip(a, b)) * rinv % R
+        raw = f["mul_sum_raw"](a, b)
+        assert raw < (n + 1) * R and raw % R == want
+        got = f["mul_sum"](a, b)
+        assert got < 2 * R and got % R == want
+        worst = max(worst, raw)
+    assert (worst >= 2 * R) == (n > 2)

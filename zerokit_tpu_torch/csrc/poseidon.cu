@@ -7,27 +7,61 @@
 // one) and mix by the MDS matrix; the output is state[0]. Values are
 // Montgomery Fr (radix 2^256) in the package's (16, n) int32 16-bit limbs.
 //
-// A first design, simple and right: one thread a hash, the state T x 8
-// words in registers on bn254.cuh's Fr core. Register values lie in
-// [0, 2r), and three of them can pass 2^256 (r ~ 0.19 * 2^256), so each MDS
-// row sum goes through `add` term by term, which brings every partial sum
-// back below 2r. The (RF + RP) x T round constants and the T x T MDS
-// matrix (Montgomery, canonical, 8 words each) are staged from a device
-// table into shared memory at block start: 6.5 KB at T = 3, 23 KB at T = 9
-// (the eight tables together, ~97 KB, do not fit __constant__'s 64 KB).
-// Every thread of a warp reads the same constant: a broadcast.
+// What bounds it: 32-bit multiplies. The work is the Montgomery products,
+// ~264 IMADs each, and a hash reads and writes 64 B a lane. So the kernel
+// runs the permutation in its cheapest known form, the sparse partial-round
+// form (Grassi et al., "Poseidon", Appendix B), built on the host by
+// hash/poseidon_kernels.sparse_form:
+//   * a partial round is lane 0's x^5, then row 0 of its sparse factor as
+//     a T-product dot and s[i] + v_i * s[0] for i >= 1: 2T - 1 products
+//     where the dense mix takes T^2 (its dense factors are folded into the
+//     last first-half full round's matrix, and its constants but lane 0's
+//     carried into the next round's);
+//   * round 0's lane 0 is a constant, so its x^5 and its column of the mix
+//     are folded into round 1's constants;
+//   * the last round's mix is row 0 only.
+// That is poseidon_mont_muls(T) products a hash: 588 at T = 3 (828 dense).
+// At T <= 4 each mix row of two or more products is summed before one
+// Montgomery reduction (bn254.cuh mul_sum): 134,152 32-bit multiplies a
+// T = 3 hash where 588 products reduced alone take 155,232
+// (runtime/profiling.poseidon_imads, the bound).
+//
+// One thread a hash, the state T x 8 words in registers on bn254.cuh's Fr
+// core. Register values lie in [0, 2r), and three of them can pass 2^256
+// (r ~ 0.19 * 2^256), so from T = 5 each row sum goes through `add` term
+// by term, which brings every partial sum back below 2r; mul_sum's rows
+// end in [0, 2r) by one conditional subtraction. The table (RF x T full
+// round constants, RP lane-0 constants, M, B, RP x (2T - 1) sparse entries;
+// Montgomery, canonical, 8 words each: 12 KB at T = 3, 43 KB at T = 9) is
+// staged into shared memory at block start. Every thread of a warp reads
+// the same constant: a broadcast.
+//
+// The launch shape follows from n and the SM count (hash/poseidon_kernels.
+// launch_shape is the same rule). A tree's upper levels hold fewer hashes
+// than the card holds warp schedulers (4 an SM), and there a warp's time
+// is one hash's chain of products, ~845 cycles each: the products of one
+// thread do not overlap. So where G threads a hash (G = T rounded up to a
+// power of two) still give each scheduler at most two warps, a hash runs
+// on G threads (poseidon_group_kernel): thread k holds state lane k, x^5
+// and row k of a full round's mix run on thread k, and a partial round's
+// products are spread over the group, the state exchanged by __shfl_sync;
+// the chain falls from 588 products to 275 product steps at T = 3.
+// Otherwise one thread a hash (poseidon_kernel). Either way the lanes (n x
+// threads a hash) go in blocks of w warps, the largest power of two up to
+// 8 with w <= (their warps) / (SM count), else 1: the lanes spread one
+// warp an SM before a block gets a second, where 256-thread blocks would
+// pile 8 warps on a few SMs.
 //
 // Each input is a base pointer with a lane stride and a limb stride, so a
 // tree level (16, 2n) is read in place as its own lefts (lane stride 2)
 // and rights (offset 1, lane stride 2). The output is made canonical once,
 // in store8 (bn254.cuh invariant 2).
 //
-// T = 2..4 (the protocol's arities) inline every product. From T = 5 the
-// MDS products of a round grow as T^2 (up to 81 at T = 9), and inlined
-// they would make the build's straight-line code several hundred KB, so
-// those widths call one out-of-line product with its operands by value,
-// as the Fq2 products do (fq2_part_mul); the round loops are not unrolled
-// at any T.
+// T = 2..4 (the protocol's arities) inline every product. From T = 5 a
+// full round's products grow as T^2 (up to 81 at T = 9), and inlined they
+// would make the build's straight-line code several hundred KB, so those
+// widths call one out-of-line product with its operands by value, as the
+// Fq2 products do (fq2_part_mul); the round loops are not unrolled at any T.
 
 #include <cuda_runtime.h>
 
@@ -37,8 +71,10 @@ using namespace zk;
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 8;
+constexpr int kMaxThreads = 32 * kMaxWarps;
 constexpr int kMaxInputs = 8;
+constexpr size_t kStaticSmem = 48 * 1024;  // no opt-in needed below this
 
 struct PoseidonInputs {
   const int32_t* base[kMaxInputs];
@@ -79,37 +115,69 @@ __device__ __forceinline__ FrE pow5(const FrE& x) {
   return fr_mul<Inline>(fr_mul<Inline>(x2, x2), x);
 }
 
-// one round: ark add, sbox (every lane if Full, else lane 0), MDS mix
-template <int T, bool Full>
-__device__ __forceinline__ void poseidon_round(FrE (&s)[T], const u32* ark, const u32* mds) {
+// row . x for N canonical constants at `row` in the shared table. At T <=
+// 4 a row of two or more is one mul_sum, one Montgomery reduction for the
+// row (128 N + 136 multiplies where N products take 264 N; bn254.cuh);
+// else each product is reduced and the sum taken by add.
+template <int T, int N>
+__device__ __forceinline__ FrE row_dot(const u32* row, const FrE (&x)[N]) {
   constexpr bool kInline = T <= 4;
+  if constexpr (kInline && N >= 2) {
+    FrE c[N];
 #pragma unroll
-  for (int k = 0; k < T; k++) s[k] = add(s[k], smem_elem(ark + 8 * k));
-  if constexpr (Full) {
-#pragma unroll
-    for (int k = 0; k < T; k++) s[k] = pow5<kInline>(s[k]);
+    for (int j = 0; j < N; j++) c[j] = smem_elem(row + 8 * j);
+    return mul_sum(c, x);
   } else {
-    s[0] = pow5<kInline>(s[0]);
+    FrE acc = fr_mul<kInline>(smem_elem(row), x[0]);
+#pragma unroll
+    for (int j = 1; j < N; j++) acc = add(acc, fr_mul<kInline>(smem_elem(row + 8 * j), x[j]));
+    return acc;
   }
-  FrE acc[T];
+}
+
+// A full round: ark add and x^5 on every lane, then the mix by m. First:
+// round 0, whose lane 0 (a constant) was folded into round 1's constants,
+// so lanes 1.. only. Row0: the last round, whose output is row 0 only.
+template <int T, bool First, bool Row0>
+__device__ __forceinline__ void full_round(FrE (&s)[T], const u32* ark, const u32* m) {
+  constexpr bool kInline = T <= 4;
+  constexpr int k0 = First ? 1 : 0;
+  constexpr int rows = Row0 ? 1 : T;
+  FrE x[T - k0];
 #pragma unroll
-  for (int r = 0; r < T; r++) {
-    acc[r] = fr_mul<kInline>(smem_elem(mds + 8 * (r * T)), s[0]);
+  for (int k = k0; k < T; k++) x[k - k0] = pow5<kInline>(add(s[k], smem_elem(ark + 8 * k)));
 #pragma unroll
-    for (int c = 1; c < T; c++) {
-      acc[r] = add(acc[r], fr_mul<kInline>(smem_elem(mds + 8 * (r * T + c)), s[c]));
-    }
+  for (int r = 0; r < rows; r++) s[r] = row_dot<T, T - k0>(m + 8 * (r * T + k0), x);
+}
+
+// A partial round: lane 0's constant and x^5, then the sparse factor: row
+// 0 (sp[0..T)) dotted with the state, and column 0 (sp[T..2T-1)) times the
+// new s[0] added to lanes 1..
+template <int T>
+__device__ __forceinline__ void partial_round(FrE (&s)[T], const u32* c0, const u32* sp) {
+  constexpr bool kInline = T <= 4;
+  FrE x[T];
+  x[0] = pow5<kInline>(add(s[0], smem_elem(c0)));
+#pragma unroll
+  for (int j = 1; j < T; j++) x[j] = s[j];
+  s[0] = row_dot<T, T>(sp, x);
+#pragma unroll
+  for (int i = 1; i < T; i++) {
+    s[i] = add(s[i], fr_mul<kInline>(smem_elem(sp + 8 * (T + i - 1)), x[0]));
   }
-#pragma unroll
-  for (int r = 0; r < T; r++) s[r] = acc[r];
+}
+
+// the table's size in 32-byte values
+__host__ __device__ constexpr int table_values(int t, int rf, int rp) {
+  return rf * t + rp + 2 * t * t + rp * (2 * t - 1);
 }
 
 template <int T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     poseidon_kernel(const u32* __restrict__ consts, PoseidonInputs in, int32_t* __restrict__ out,
                     i64 n, int rf, int rp) {
   extern __shared__ __align__(16) u32 table[];
-  const int vec = ((rf + rp) * T + T * T) * 2;  // 16-byte words of the table
+  const int vec = table_values(T, rf, rp) * 2;  // 16-byte words
   for (int w = threadIdx.x; w < vec; w += blockDim.x) {
     reinterpret_cast<uint4*>(table)[w] = __ldg(reinterpret_cast<const uint4*>(consts) + w);
   }
@@ -123,23 +191,152 @@ __global__ void __launch_bounds__(kThreads)
   for (int k = 1; k < T; k++) {
     load8(s[k].v, in.base[k - 1] + i * in.lane_stride[k - 1], in.limb_stride[k - 1]);
   }
-  const u32* mds = table + (rf + rp) * T * 8;
   const int half = rf / 2;
+  const u32* ark = table;                    // rf x T
+  const u32* part = ark + rf * T * 8;        // rp
+  const u32* mds = part + rp * 8;            // T x T
+  const u32* first = mds + T * T * 8;        // T x T
+  const u32* sparse = first + T * T * 8;     // rp x (2T - 1)
+  full_round<T, true, false>(s, ark, mds);  // half >= 2: round 0 mixes by M
 #pragma unroll 1
-  for (int r = 0; r < half; r++) poseidon_round<T, true>(s, table + r * T * 8, mds);
+  for (int r = 1; r < half - 1; r++) full_round<T, false, false>(s, ark + r * T * 8, mds);
+  full_round<T, false, false>(s, ark + (half - 1) * T * 8, first);
 #pragma unroll 1
-  for (int r = half; r < half + rp; r++) poseidon_round<T, false>(s, table + r * T * 8, mds);
+  for (int k = 0; k < rp; k++) partial_round<T>(s, part + k * 8, sparse + k * (2 * T - 1) * 8);
 #pragma unroll 1
-  for (int r = half + rp; r < rf + rp; r++) poseidon_round<T, true>(s, table + r * T * 8, mds);
+  for (int r = half; r < rf - 1; r++) full_round<T, false, false>(s, ark + r * T * 8, mds);
+  full_round<T, false, true>(s, ark + (rf - 1) * T * 8, mds);
   store8(out + i, n, s[0]);
+}
+
+// ---------------------------------------------------------------------------
+// G threads a hash, for calls too small to keep the warp schedulers busy
+// ---------------------------------------------------------------------------
+
+// threads a hash: T rounded up to a power of two, so a group is a shuffle
+// segment of its warp
+__host__ __device__ constexpr int group_of(int t) {
+  return t <= 2 ? 2 : t <= 4 ? 4 : t <= 8 ? 8 : 16;
+}
+
+// x from thread src of this thread's group of G
+template <int G>
+__device__ __forceinline__ FrE shfl(const FrE& x, int src) {
+  FrE r;
+#pragma unroll
+  for (int w = 0; w < 8; w++) r.v[w] = __shfl_sync(0xffffffffu, x.v[w], src, G);
+  return r;
+}
+
+// A full round on thread k of a group (k clamped to T - 1 in kk: threads
+// T..G-1 shadow lane T - 1 and are never read): lane k's constant and x^5,
+// then row k of m times the group's x. First: round 0, lane 0's column
+// folded into round 1's constants.
+template <int T, bool First>
+__device__ __forceinline__ void group_full_round(FrE& s, int kk, const u32* ark, const u32* m) {
+  constexpr int G = group_of(T);
+  constexpr int j0 = First ? 1 : 0;
+  FrE x = pow5<(T <= 4)>(add(s, smem_elem(ark + 8 * kk)));
+  FrE xs[T - j0];
+#pragma unroll
+  for (int j = j0; j < T; j++) xs[j - j0] = shfl<G>(x, j);
+  s = row_dot<T, T - j0>(m + 8 * (kk * T + j0), xs);
+}
+
+// A partial round on thread k: thread 0 squares lane 0 + its constant
+// while thread i >= 1 makes row0[i] * s_i, thread 0 ends the x^5, every
+// thread multiplies it by its coefficient (row0[0] on thread 0, column 0's
+// entry i - 1 on thread i), and thread 0 sums the row.
+template <int T>
+__device__ __forceinline__ void group_partial_round(FrE& s, int k, int kk, const u32* c0,
+                                                    const u32* sp) {
+  constexpr bool kInline = T <= 4;
+  constexpr int G = group_of(T);
+  FrE x = add(s, smem_elem(c0));
+  FrE a = k == 0 ? x : smem_elem(sp + 8 * kk);
+  FrE b = k == 0 ? x : s;
+  FrE p = fr_mul<kInline>(a, b);  // x^2 on thread 0, row0[k] * s_k elsewhere
+  FrE x5 = p;
+  if (k == 0) x5 = fr_mul<kInline>(fr_mul<kInline>(p, p), x);
+  x5 = shfl<G>(x5, 0);
+  FrE q = fr_mul<kInline>(smem_elem(k == 0 ? sp : sp + 8 * (T + kk - 1)), x5);
+  FrE row = q;
+#pragma unroll
+  for (int i = 1; i < T; i++) row = add(row, shfl<G>(p, i));
+  s = k == 0 ? row : add(s, q);
+}
+
+template <int T>
+__global__ void __launch_bounds__(kMaxThreads)
+    poseidon_group_kernel(const u32* __restrict__ consts, PoseidonInputs in,
+                          int32_t* __restrict__ out, i64 n, int rf, int rp) {
+  constexpr int G = group_of(T);
+  extern __shared__ __align__(16) u32 table[];
+  const int vec = table_values(T, rf, rp) * 2;  // 16-byte words
+  for (int w = threadIdx.x; w < vec; w += blockDim.x) {
+    reinterpret_cast<uint4*>(table)[w] = __ldg(reinterpret_cast<const uint4*>(consts) + w);
+  }
+  __syncthreads();
+  // every thread runs to the end: the shuffles take the whole warp
+  const i64 i = ((i64)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int k = threadIdx.x % G;
+  const int kk = k < T ? k : T - 1;
+  const bool live = i < n;
+  FrE s;
+#pragma unroll
+  for (int w = 0; w < 8; w++) s.v[w] = 0;
+  if (live && k >= 1 && k < T) {
+    load8(s.v, in.base[k - 1] + i * in.lane_stride[k - 1], in.limb_stride[k - 1]);
+  }
+  const int half = rf / 2;
+  const u32* ark = table;
+  const u32* part = ark + rf * T * 8;
+  const u32* mds = part + rp * 8;
+  const u32* first = mds + T * T * 8;
+  const u32* sparse = first + T * T * 8;
+  group_full_round<T, true>(s, kk, ark, mds);
+#pragma unroll 1
+  for (int r = 1; r < rf; r++) {
+    if (r == half) {
+#pragma unroll 1
+      for (int j = 0; j < rp; j++) {
+        group_partial_round<T>(s, k, kk, part + j * 8, sparse + j * (2 * T - 1) * 8);
+      }
+    }
+    group_full_round<T, false>(s, kk, ark + r * T * 8, r == half - 1 ? first : mds);
+  }
+  if (live && k == 0) store8(out + i, n, s);
+}
+
+// warps a block for `lanes` threads on sms SMs (poseidon_kernels.launch_shape)
+int warps_per_block(i64 lanes, int sms) {
+  i64 per_sm = (lanes + 31) / 32 / sms;
+  int w = 1;
+  while (w < kMaxWarps && 2 * w <= per_sm) w *= 2;
+  return w;
 }
 
 template <int T>
 int launch(const PoseidonInputs& in, const u32* consts, int32_t* out, i64 n, int rf, int rp,
-           cudaStream_t s) {
-  size_t smem = (size_t)((rf + rp) * T + T * T) * 8 * sizeof(u32);
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  poseidon_kernel<T><<<blocks, kThreads, smem, s>>>(consts, in, out, n, rf, rp);
+           int* shape_out, cudaStream_t s) {
+  size_t smem = (size_t)table_values(T, rf, rp) * 8 * sizeof(u32);
+  if (smem > kStaticSmem) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // G threads a hash while that gives each scheduler at most two warps
+  const int g = (n * group_of(T) + 31) / 32 <= 8 * (i64)sms ? group_of(T) : 1;
+  const i64 lanes = n * g;
+  const int threads = 32 * warps_per_block(lanes, sms);
+  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
+  if (g > 1) {
+    poseidon_group_kernel<T><<<blocks, threads, smem, s>>>(consts, in, out, n, rf, rp);
+  } else {
+    poseidon_kernel<T><<<blocks, threads, smem, s>>>(consts, in, out, n, rf, rp);
+  }
+  shape_out[0] = threads;
+  shape_out[1] = g;
   return (int)cudaGetLastError();
 }
 
@@ -147,16 +344,17 @@ int launch(const PoseidonInputs& in, const u32* consts, int32_t* out, i64 n, int
 
 extern "C" {
 
-// t = 2..9; rf (even), rp: the round counts of params_for_t(t). consts: the
-// device table of (rf + rp) * t round constants then t * t MDS entries,
-// Montgomery, 8 little-endian u32 words each, 16-byte aligned. bases,
-// lane_strides, limb_strides: host arrays of the t - 1 inputs' device
-// pointers and strides in int32 words (limb i of lane j of input k at
-// bases[k] + j * lane_strides[k] + i * limb_strides[k]). out: (16, n).
+// t = 2..9; rf (even, >= 4), rp: the round counts of params_for_t(t).
+// consts: the device table of poseidon_kernels.table_values(t) (Montgomery,
+// 8 little-endian u32 words each, 16-byte aligned). bases, lane_strides,
+// limb_strides: host arrays of the t - 1 inputs' device pointers and
+// strides in int32 words (limb i of lane j of input k at bases[k] + j *
+// lane_strides[k] + i * limb_strides[k]). out: (16, n). shape_out: the
+// launch's threads a block and threads a hash.
 int zk_poseidon(int t, int rf, int rp, const void* consts, const long long* bases,
                 const long long* lane_strides, const long long* limb_strides, void* out,
-                long long n, void* stream) {
-  if (t < 2 || t > kMaxInputs + 1 || rf <= 0 || rf % 2 != 0 || rp <= 0) {
+                long long n, int* shape_out, void* stream) {
+  if (t < 2 || t > kMaxInputs + 1 || rf < 4 || rf % 2 != 0 || rp <= 0) {
     return (int)cudaErrorInvalidValue;
   }
   PoseidonInputs in = {};
@@ -169,14 +367,14 @@ int zk_poseidon(int t, int rf, int rp, const void* consts, const long long* base
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (t) {
-    case 2: return launch<2>(in, c, o, n, rf, rp, s);
-    case 3: return launch<3>(in, c, o, n, rf, rp, s);
-    case 4: return launch<4>(in, c, o, n, rf, rp, s);
-    case 5: return launch<5>(in, c, o, n, rf, rp, s);
-    case 6: return launch<6>(in, c, o, n, rf, rp, s);
-    case 7: return launch<7>(in, c, o, n, rf, rp, s);
-    case 8: return launch<8>(in, c, o, n, rf, rp, s);
-    default: return launch<9>(in, c, o, n, rf, rp, s);
+    case 2: return launch<2>(in, c, o, n, rf, rp, shape_out, s);
+    case 3: return launch<3>(in, c, o, n, rf, rp, shape_out, s);
+    case 4: return launch<4>(in, c, o, n, rf, rp, shape_out, s);
+    case 5: return launch<5>(in, c, o, n, rf, rp, shape_out, s);
+    case 6: return launch<6>(in, c, o, n, rf, rp, shape_out, s);
+    case 7: return launch<7>(in, c, o, n, rf, rp, shape_out, s);
+    case 8: return launch<8>(in, c, o, n, rf, rp, shape_out, s);
+    default: return launch<9>(in, c, o, n, rf, rp, shape_out, s);
   }
 }
 

@@ -41,6 +41,10 @@ import torch
 # lo and hi halves each counted: per outer step i (8 of them) the 8 a*b
 # products (16), m = t0 * n0' (1) and the 8 m*p products (16).
 MONT_MUL_IMADS = 8 * (2 * 8 + 1 + 2 * 8)
+# A row of k products summed before one reduction (bn254.cuh `mul_sum`):
+# the k products' a*b halves, then the reduction's m and m*p halves, once.
+ROW_PRODUCT_IMADS = 8 * 2 * 8
+ROW_REDC_IMADS = 8 * (1 + 2 * 8)
 # complete projective add (RCB15 Alg 7): 12M + cheap b3 muls
 EC_ADD_MONT_MULS = 12
 # Montgomery products per operation of the kernels (csrc/bn254.cuh): G1's
@@ -398,8 +402,9 @@ def speed_of_light(chip: ChipSpec = ChipSpec(), **kwargs) -> dict:
 
 def poseidon_mont_muls(t: int) -> int:
     """Montgomery products of one Poseidon hash of width t in its cheapest
-    known form, the least work of the function (P1 runs the plain form:
-    t^2 products for every mix). x^5 is 3 products, on t lanes in each of
+    known form, the least work of the function and the form P1 runs
+    (hash/poseidon_kernels.sparse_form; the plain version runs the dense
+    form, t^2 products for every mix). x^5 is 3 products, on t lanes in each of
     the RF full rounds and on lane 0 in each of the RP partial rounds. A
     full round's mix is t^2 products; a partial round's is 2t - 1, the
     sparse factor of the MDS matrix (Grassi et al., "Poseidon", Appendix B:
@@ -411,6 +416,23 @@ def poseidon_mont_muls(t: int) -> int:
 
     rf, rp, _, _ = params_for_t(t)
     return rf * (3 * t + t * t) + rp * (3 + 2 * t - 1) - (3 + t) - (t * t - t)
+
+
+def poseidon_imads(t: int) -> int:
+    """32-bit multiplies of one Poseidon hash of width t in its cheapest
+    known form: poseidon_mont_muls(t)'s products, with each mix row of k
+    products summed before one Montgomery reduction (bn254.cuh `mul_sum`,
+    ROW_PRODUCT_IMADS k + ROW_REDC_IMADS; P1 runs it at t <= 4). The rows:
+    round 0's t rows of t - 1 products (lane 0 folded), t rows of t in each
+    of the RF - 2 full rounds between, the last round's row 0, and each
+    partial round's row 0; every other product (x^5's three, a partial
+    round's column-0 products) is reduced alone, MONT_MUL_IMADS."""
+    from ..hash.poseidon import params_for_t
+
+    rf, rp, _, _ = params_for_t(t)
+    rows = [t - 1] * t + [t] * ((rf - 2) * t + 1 + rp)
+    alone = poseidon_mont_muls(t) - sum(rows)
+    return alone * MONT_MUL_IMADS + sum(ROW_PRODUCT_IMADS * k + ROW_REDC_IMADS for k in rows)
 
 
 def _point_words(comps: int, coords: int) -> int:
@@ -479,7 +501,7 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      and lane; three int32 indices a Div,
                                      two operands read and one value written
                                      a Div and lane
-      P1 t, lanes                    poseidon_perm: poseidon_mont_muls(t) a
+      P1 t, lanes                    poseidon_perm: poseidon_imads(t) a
                                      lane; t - 1 inputs read and one output
                                      written, 64 B each, a lane
     """
@@ -542,7 +564,7 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                 3 * w * divs + 3 * SLOT_BYTES * divs * lanes)
     if key == "P1":
         t, lanes = shape["t"], shape["lanes"]
-        return lanes * poseidon_mont_muls(t) * MONT_MUL_IMADS, lanes * t * LIMBS * w
+        return lanes * poseidon_imads(t), lanes * t * LIMBS * w
     raise ValueError(f"unknown kernel {key!r}")
 
 
