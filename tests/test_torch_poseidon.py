@@ -195,6 +195,28 @@ def test_kernel_table_is_the_montgomery_constants():
             assert full[r] == list(ark[(r if r < half else r + rp) * t:][:t])
 
 
+def test_kernel_layout_is_the_table_order():
+    """The kernel's one layout helper (csrc/poseidon.cu `layout`, the
+    offsets both kernels and the launch's shared-memory size read) puts
+    each part where table_values puts it, 8 words a value."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(pk.__file__).parent.parent / "csrc" / "poseidon.cu").read_text()
+    body = re.search(r"constexpr Layout layout\(int t, int rf, int rp\) \{\s*return \{(.*?)\};",
+                     src, re.S).group(1)
+    fields = [f.strip() for f in body.split(",")]
+    assert len(fields) == 6
+    for t in range(2, 10):
+        rf, rp, _, _ = pos.params_for_t(t)
+        form = pk.sparse_form(t)
+        got = [eval(f, {}, {"t": t, "rf": rf, "rp": rp}) for f in fields]
+        sizes = [rf * t, len(form.part_ark), t * t, t * t,
+                 sum(len(a) + len(b) for a, b in form.sparse)]
+        want = [8 * sum(sizes[:k]) for k in range(6)]
+        assert got == want and got[-1] == 8 * len(pk.table_values(t))
+
+
 def walk_table(t: int, state: list, products: list) -> int:
     """P1's permutation on Python ints in the kernel's exact order, from
     the table's Montgomery words: state is [0, inputs...] in Montgomery

@@ -363,11 +363,11 @@ def test_p1_products_per_hash(t, least, plain, monkeypatch):
     assert sum(seen) == plain
 
 
-def _least_form_hash(inputs, products):
+def _least_form_hash(inputs, products, squares=None):
     """One Poseidon hash in the form poseidon_mont_muls counts, on Python
     ints, from the package's builder (hash/poseidon_kernels.sparse_form,
     the form P1's table holds); `products` gets one entry a product that
-    depends on the inputs. Each partial round is lane 0's constant and
+    depends on the inputs, `squares` (if given) one a squaring. Each partial round is lane 0's constant and
     x^5, then its sparse factor: row 0 dotted with the state, column 0
     times the new lane 0 added to lanes 1..; round 0's lane 0 (a constant)
     is folded into round 1's constants; the last round's mix is row 0."""
@@ -381,9 +381,13 @@ def _least_form_hash(inputs, products):
         products.append(1)
         return x * y % R
 
+    def sqr(x):
+        if squares is not None:
+            squares.append(1)
+        return mul(x, x)
+
     def pow5(x):
-        x2 = mul(x, x)
-        return mul(mul(x2, x2), x)
+        return mul(sqr(sqr(x)), x)
 
     s = [0] + [v % R for v in inputs]
     for r in range(form.rf):
@@ -414,27 +418,53 @@ def test_p1_least_form_is_the_hash(t):
 
 
 def test_p1_work_and_bound_pin_the_prediction():
-    """PERF.md's P1 bound: 134,152 IMADs a t = 3 hash, the least form's 588
+    """PERF.md's P1 bound: 125,192 IMADs a t = 3 hash, the least form's 588
     products with each mix row of two or more reduced once (bn254.cuh
-    mul_sum): 354 products alone (the 240 of 80 x^5's, the partial rounds'
-    114 column-0 products) at 264, round 0's 3 rows of 2 at 2 * 128 + 136, and 76 rows of 3
-    (18 in rounds 1-6, the last round's row 0, 57 partial rounds') at
-    3 * 128 + 136. The leaf level of a depth-20 tree (2^19 pairs) 4.20 ms,
-    IMAD-bound, its 100 MB 0.03 ms; the whole rebuild 8.4 ms, ~125 M
+    mul_sum) and x^5's squarings counted as squarings: 80 x^5's (24 in the
+    full rounds but round 0's lane 0, 57 partial) of two squarings at
+    36 * 2 + 136 and one product at 264, the partial rounds' 114 column-0
+    products at 264, round 0's 3 rows of 2 at 2 * 128 + 136, and 76 rows of
+    3 (18 in rounds 1-6, the last round's row 0, 57 partial rounds') at
+    3 * 128 + 136. The leaf level of a depth-20 tree (2^19 pairs) 3.92 ms,
+    IMAD-bound, its 100 MB 0.03 ms; the whole rebuild 7.85 ms, ~134 M
     hashes/s (16.727 Top/s, 3.35 TB/s)."""
     assert prof.ROW_PRODUCT_IMADS + prof.ROW_REDC_IMADS == prof.MONT_MUL_IMADS
-    assert prof.poseidon_imads(3) == 354 * 264 + 3 * (2 * 128 + 136) + 76 * (3 * 128 + 136)
-    assert prof.poseidon_imads(3) == 134152
+    assert prof.SQR_IMADS == 8 * 9 // 2 * 2 + 136 == 208
+    assert prof.poseidon_imads(3) == (160 * 208 + (80 + 114) * 264 + 3 * (2 * 128 + 136)
+                                      + 76 * (3 * 128 + 136))
+    assert prof.poseidon_imads(3) == 125192
     n = 1 << 19
     imads, nbytes = prof.kernel_work("P1", t=3, lanes=n)
-    assert imads == n * 134152 and nbytes == n * 3 * 64
+    assert imads == n * 125192 and nbytes == n * 3 * 64
     sec, res = prof.kernel_bound("P1", H100, t=3, lanes=n)
-    assert res == "imad" and round(sec * 1e3, 2) == 4.20
+    assert res == "imad" and round(sec * 1e3, 2) == 3.92
     assert round(nbytes / H100.hbm_bytes_per_sec * 1e3, 2) == 0.03
     rebuild = sum(prof.kernel_bound("P1", H100, t=3, lanes=1 << lv)[0] for lv in range(20))
-    assert round(rebuild * 1e3, 1) == 8.4
-    assert round(((1 << 20) - 1) / rebuild / 1e6) == 125
-    assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 98592, 10 * 2 * 64)
+    assert round(rebuild * 1e3, 2) == 7.85
+    assert round(((1 << 20) - 1) / rebuild / 1e6) == 134
+    assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 90640, 10 * 2 * 64)
+
+
+@pytest.mark.parametrize("t", [2, 3, 4, 9])
+def test_p1_squarings_are_the_x5s(t):
+    """poseidon_imads charges two squarings an x^5, 2 (RF t - 1 + RP) a
+    hash: the squarings the least form's walk makes. Its rows hold the
+    walk's other products but x^5's last and the column-0 products."""
+    from zerokit_tpu_torch.hash.poseidon import params_for_t
+
+    rf, rp, _, _ = params_for_t(t)
+    rnd = random.Random(100 + t)
+    products, squares = [], []
+    _least_form_hash([rnd.randrange(R) for _ in range(t - 1)], products, squares)
+    assert len(squares) == 2 * (rf * t - 1 + rp)
+    n_rows = t + (rf - 2) * t + 1 + rp
+    row_products = t * (t - 1) + (n_rows - t) * t
+    alone = len(squares) // 2 + rp * (t - 1)  # x^5's last product, column 0's
+    assert len(products) == len(squares) + row_products + alone
+    assert prof.poseidon_imads(t) == (alone * prof.MONT_MUL_IMADS
+                                      + len(squares) * prof.SQR_IMADS
+                                      + row_products * prof.ROW_PRODUCT_IMADS
+                                      + n_rows * prof.ROW_REDC_IMADS)
 
 
 @pytest.mark.parametrize("iters", [0, 1, 3, 64])

@@ -23,8 +23,10 @@
 // That is poseidon_mont_muls(T) products a hash: 588 at T = 3 (828 dense).
 // At T <= 4 each mix row of two or more products is summed before one
 // Montgomery reduction (bn254.cuh mul_sum): 134,152 32-bit multiplies a
-// T = 3 hash where 588 products reduced alone take 155,232
-// (runtime/profiling.poseidon_imads, the bound).
+// T = 3 hash where 588 products reduced alone take 155,232. x^5's two
+// squarings run as full products (bn254.cuh's sqr is mul(a, a)); the
+// bound, runtime/profiling.poseidon_imads, counts them as squarings:
+// 125,192.
 //
 // One thread a hash, the state T x 8 words in registers on bn254.cuh's Fr
 // core. Register values lie in [0, 2r), and three of them can pass 2^256
@@ -36,21 +38,17 @@
 // staged into shared memory at block start. Every thread of a warp reads
 // the same constant: a broadcast.
 //
-// The launch shape follows from n and the SM count (hash/poseidon_kernels.
-// launch_shape is the same rule). A tree's upper levels hold fewer hashes
-// than the card holds warp schedulers (4 an SM), and there a warp's time
-// is one hash's chain of products, ~845 cycles each: the products of one
-// thread do not overlap. So where G threads a hash (G = T rounded up to a
-// power of two) still give each scheduler at most two warps, a hash runs
-// on G threads (poseidon_group_kernel): thread k holds state lane k, x^5
-// and row k of a full round's mix run on thread k, and a partial round's
-// products are spread over the group, the state exchanged by __shfl_sync;
-// the chain falls from 588 products to 275 product steps at T = 3.
-// Otherwise one thread a hash (poseidon_kernel). Either way the lanes (n x
-// threads a hash) go in blocks of w warps, the largest power of two up to
-// 8 with w <= (their warps) / (SM count), else 1: the lanes spread one
-// warp an SM before a block gets a second, where 256-thread blocks would
-// pile 8 warps on a few SMs.
+// The launch shape is chosen by the wrapper (hash/poseidon_kernels.
+// launch_shape, from n, T and the SM count) and passed in. A tree's upper
+// levels hold fewer hashes than the card holds warp schedulers (4 an SM),
+// and there a warp's time is one hash's chain of products, ~845 cycles
+// each: the products of one thread do not overlap. So there a hash runs
+// on G threads (poseidon_group_kernel, G = T rounded up to a power of
+// two): thread k holds state lane k, x^5 and row k of a full round's mix
+// run on thread k, and a partial round's products are spread over the
+// group, the state exchanged by __shfl_sync; the chain falls from 588
+// products to 275 product steps at T = 3. Otherwise one thread a hash
+// (poseidon_kernel).
 //
 // Each input is a base pointer with a lane stride and a limb stride, so a
 // tree level (16, 2n) is read in place as its own lefts (lane stride 2)
@@ -71,8 +69,7 @@ using namespace zk;
 
 namespace {
 
-constexpr int kMaxWarps = 8;
-constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr int kMaxThreads = 256;
 constexpr int kMaxInputs = 8;
 constexpr size_t kStaticSmem = 48 * 1024;  // no opt-in needed below this
 
@@ -167,9 +164,24 @@ __device__ __forceinline__ void partial_round(FrE (&s)[T], const u32* c0, const 
   }
 }
 
-// the table's size in 32-byte values
-__host__ __device__ constexpr int table_values(int t, int rf, int rp) {
-  return rf * t + rp + 2 * t * t + rp * (2 * t - 1);
+// The table's layout in 32-bit words (poseidon_kernels.table_values):
+// full_ark (rf x T), part_ark (rp), mds (T x T), first (T x T), sparse
+// (rp x (2T - 1)), 8 words a value.
+struct Layout {
+  int ark, part, mds, first, sparse, words;
+};
+
+__host__ __device__ constexpr Layout layout(int t, int rf, int rp) {
+  return {0, 8 * rf * t, 8 * (rf * t + rp), 8 * (rf * t + rp + t * t),
+          8 * (rf * t + rp + 2 * t * t), 8 * (rf * t + rp + 2 * t * t + rp * (2 * t - 1))};
+}
+
+// the table, copied from global into shared memory by the whole block
+__device__ __forceinline__ void stage_table(u32* table, const u32* consts, const Layout& l) {
+  for (int w = threadIdx.x; w < l.words / 4; w += blockDim.x) {
+    reinterpret_cast<uint4*>(table)[w] = __ldg(reinterpret_cast<const uint4*>(consts) + w);
+  }
+  __syncthreads();
 }
 
 template <int T>
@@ -177,11 +189,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     poseidon_kernel(const u32* __restrict__ consts, PoseidonInputs in, int32_t* __restrict__ out,
                     i64 n, int rf, int rp) {
   extern __shared__ __align__(16) u32 table[];
-  const int vec = table_values(T, rf, rp) * 2;  // 16-byte words
-  for (int w = threadIdx.x; w < vec; w += blockDim.x) {
-    reinterpret_cast<uint4*>(table)[w] = __ldg(reinterpret_cast<const uint4*>(consts) + w);
-  }
-  __syncthreads();
+  const Layout l = layout(T, rf, rp);
+  stage_table(table, consts, l);
   i64 i = (i64)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   FrE s[T];
@@ -192,11 +201,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     load8(s[k].v, in.base[k - 1] + i * in.lane_stride[k - 1], in.limb_stride[k - 1]);
   }
   const int half = rf / 2;
-  const u32* ark = table;                    // rf x T
-  const u32* part = ark + rf * T * 8;        // rp
-  const u32* mds = part + rp * 8;            // T x T
-  const u32* first = mds + T * T * 8;        // T x T
-  const u32* sparse = first + T * T * 8;     // rp x (2T - 1)
+  const u32 *ark = table + l.ark, *part = table + l.part, *mds = table + l.mds;
+  const u32 *first = table + l.first, *sparse = table + l.sparse;
   full_round<T, true, false>(s, ark, mds);  // half >= 2: round 0 mixes by M
 #pragma unroll 1
   for (int r = 1; r < half - 1; r++) full_round<T, false, false>(s, ark + r * T * 8, mds);
@@ -272,11 +278,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                           int32_t* __restrict__ out, i64 n, int rf, int rp) {
   constexpr int G = group_of(T);
   extern __shared__ __align__(16) u32 table[];
-  const int vec = table_values(T, rf, rp) * 2;  // 16-byte words
-  for (int w = threadIdx.x; w < vec; w += blockDim.x) {
-    reinterpret_cast<uint4*>(table)[w] = __ldg(reinterpret_cast<const uint4*>(consts) + w);
-  }
-  __syncthreads();
+  const Layout l = layout(T, rf, rp);
+  stage_table(table, consts, l);
   // every thread runs to the end: the shuffles take the whole warp
   const i64 i = ((i64)blockIdx.x * blockDim.x + threadIdx.x) / G;
   const int k = threadIdx.x % G;
@@ -289,11 +292,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     load8(s.v, in.base[k - 1] + i * in.lane_stride[k - 1], in.limb_stride[k - 1]);
   }
   const int half = rf / 2;
-  const u32* ark = table;
-  const u32* part = ark + rf * T * 8;
-  const u32* mds = part + rp * 8;
-  const u32* first = mds + T * T * 8;
-  const u32* sparse = first + T * T * 8;
+  const u32 *ark = table + l.ark, *part = table + l.part, *mds = table + l.mds;
+  const u32 *first = table + l.first, *sparse = table + l.sparse;
   group_full_round<T, true>(s, kk, ark, mds);
 #pragma unroll 1
   for (int r = 1; r < rf; r++) {
@@ -308,35 +308,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (live && k == 0) store8(out + i, n, s);
 }
 
-// warps a block for `lanes` threads on sms SMs (poseidon_kernels.launch_shape)
-int warps_per_block(i64 lanes, int sms) {
-  i64 per_sm = (lanes + 31) / 32 / sms;
-  int w = 1;
-  while (w < kMaxWarps && 2 * w <= per_sm) w *= 2;
-  return w;
-}
-
 template <int T>
 int launch(const PoseidonInputs& in, const u32* consts, int32_t* out, i64 n, int rf, int rp,
-           int* shape_out, cudaStream_t s) {
-  size_t smem = (size_t)table_values(T, rf, rp) * 8 * sizeof(u32);
-  if (smem > kStaticSmem) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // G threads a hash while that gives each scheduler at most two warps
-  const int g = (n * group_of(T) + 31) / 32 <= 8 * (i64)sms ? group_of(T) : 1;
-  const i64 lanes = n * g;
-  const int threads = 32 * warps_per_block(lanes, sms);
-  const unsigned blocks = (unsigned)((lanes + threads - 1) / threads);
+           int threads, int g, cudaStream_t s) {
+  const size_t smem = (size_t)layout(T, rf, rp).words * sizeof(u32);
+  if (smem > kStaticSmem || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      (g != 1 && g != group_of(T))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const unsigned blocks = (unsigned)((n * g + threads - 1) / threads);
   if (g > 1) {
     poseidon_group_kernel<T><<<blocks, threads, smem, s>>>(consts, in, out, n, rf, rp);
   } else {
     poseidon_kernel<T><<<blocks, threads, smem, s>>>(consts, in, out, n, rf, rp);
   }
-  shape_out[0] = threads;
-  shape_out[1] = g;
   return (int)cudaGetLastError();
 }
 
@@ -349,11 +334,12 @@ extern "C" {
 // 8 little-endian u32 words each, 16-byte aligned). bases, lane_strides,
 // limb_strides: host arrays of the t - 1 inputs' device pointers and
 // strides in int32 words (limb i of lane j of input k at bases[k] + j *
-// lane_strides[k] + i * limb_strides[k]). out: (16, n). shape_out: the
-// launch's threads a block and threads a hash.
+// lane_strides[k] + i * limb_strides[k]). out: (16, n). threads (a block,
+// a multiple of 32 up to 256) and g (threads a hash: 1, or T rounded up to
+// a power of two): the launch shape, poseidon_kernels.launch_shape's.
 int zk_poseidon(int t, int rf, int rp, const void* consts, const long long* bases,
                 const long long* lane_strides, const long long* limb_strides, void* out,
-                long long n, int* shape_out, void* stream) {
+                long long n, int threads, int g, void* stream) {
   if (t < 2 || t > kMaxInputs + 1 || rf < 4 || rf % 2 != 0 || rp <= 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -367,14 +353,14 @@ int zk_poseidon(int t, int rf, int rp, const void* consts, const long long* base
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (t) {
-    case 2: return launch<2>(in, c, o, n, rf, rp, shape_out, s);
-    case 3: return launch<3>(in, c, o, n, rf, rp, shape_out, s);
-    case 4: return launch<4>(in, c, o, n, rf, rp, shape_out, s);
-    case 5: return launch<5>(in, c, o, n, rf, rp, shape_out, s);
-    case 6: return launch<6>(in, c, o, n, rf, rp, shape_out, s);
-    case 7: return launch<7>(in, c, o, n, rf, rp, shape_out, s);
-    case 8: return launch<8>(in, c, o, n, rf, rp, shape_out, s);
-    default: return launch<9>(in, c, o, n, rf, rp, shape_out, s);
+    case 2: return launch<2>(in, c, o, n, rf, rp, threads, g, s);
+    case 3: return launch<3>(in, c, o, n, rf, rp, threads, g, s);
+    case 4: return launch<4>(in, c, o, n, rf, rp, threads, g, s);
+    case 5: return launch<5>(in, c, o, n, rf, rp, threads, g, s);
+    case 6: return launch<6>(in, c, o, n, rf, rp, threads, g, s);
+    case 7: return launch<7>(in, c, o, n, rf, rp, threads, g, s);
+    case 8: return launch<8>(in, c, o, n, rf, rp, threads, g, s);
+    default: return launch<9>(in, c, o, n, rf, rp, threads, g, s);
   }
 }
 

@@ -64,7 +64,7 @@ _SIGNATURES = {
     "zk_witness_steps": (_I, _P, _P, _I, _P, _I, _I, _P, _I, _LL, _I, _I, _P),
     "zk_witness_steps_occupancy": (_I, _I, _PI),
     "zk_witness_div": (_P, _P, _P, _P, _I, _LL, _I, _I, _P),
-    "zk_poseidon": (_I, _I, _I, _P, _PLL, _PLL, _PLL, _P, _LL, _PI, _P),
+    "zk_poseidon": (_I, _I, _I, _P, _PLL, _PLL, _PLL, _P, _LL, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

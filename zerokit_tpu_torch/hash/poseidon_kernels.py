@@ -15,11 +15,10 @@ independent of that table.
 poseidon_perm takes each input as a (16, n) int32 tensor or view and passes
 the kernel its data pointer, lane stride and limb stride, so a tree level
 (16, 2n) serves as its own lefts (level[:, 0::2]) and rights
-(level[:, 1::2]) with no copy. The kernel picks its launch shape (threads
-a hash: 1, or t rounded up to a power of two for calls too small to give
-every warp scheduler more than two warps; warps a block) from n, t and the card's SM
-count; launch_shape is that rule, and every launch checks that the kernel
-picked what it gives.
+(level[:, 1::2]) with no copy. launch_shape picks each launch's shape
+(threads a hash: 1, or t rounded up to a power of two for calls too small
+to give every warp scheduler more than two warps; warps a block) from n,
+t and the card's SM count, and passes it to the kernel.
 
 A CUDA tensor launches the kernel (or raises); CPU tensors take
 poseidon_perm_plain, which runs on any device on the plain field FrPlain
@@ -172,7 +171,7 @@ def group_of(t: int) -> int:
 
 def launch_shape(n: int, sm_count: int, t: int) -> Tuple[int, int, int]:
     """(blocks, threads a block, threads a hash) of P1 on n lanes of width
-    t, as zk_poseidon picks them. group_of(t) threads a hash where that
+    t, the shape poseidon_perm launches. group_of(t) threads a hash where that
     gives the card's 4 x sm_count warp schedulers at most two warps each
     (a lone warp's hash is a chain of dependent products, which the group
     form halves), else one. The lanes (n x threads a hash) go in blocks of w warps, the
@@ -244,14 +243,10 @@ def poseidon_perm(inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         bases = vec(*[x.data_ptr() for x in inputs])
         lane_strides = vec(*[x.stride(1) for x in inputs])
         limb_strides = vec(*[x.stride(0) for x in inputs])
-        shape = (ctypes.c_int * 2)()
+        _, threads, group = launch_shape(n, _sm_count(out.device), t)
         _cuda.launch("zk_poseidon", t, rf, rp, _table(t, str(out.device)), bases,
-                     lane_strides, limb_strides, out, n, shape)
+                     lane_strides, limb_strides, out, n, threads, group)
         launches["poseidon"] += 1
-        want = launch_shape(n, _sm_count(out.device), t)[1:]
-        if tuple(shape) != want:
-            raise RuntimeError(f"zk_poseidon launched (threads a block, threads a hash) "
-                               f"{tuple(shape)} at t = {t}, n = {n}; launch_shape gives {want}")
     return out
 
 

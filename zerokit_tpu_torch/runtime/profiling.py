@@ -45,6 +45,9 @@ MONT_MUL_IMADS = 8 * (2 * 8 + 1 + 2 * 8)
 # the k products' a*b halves, then the reduction's m and m*p halves, once.
 ROW_PRODUCT_IMADS = 8 * 2 * 8
 ROW_REDC_IMADS = 8 * (1 + 2 * 8)
+# A Montgomery squaring: the 8 * 9 / 2 distinct word products' halves (the
+# doubled cross products cost adds), then one reduction.
+SQR_IMADS = 8 * 9 + ROW_REDC_IMADS
 # complete projective add (RCB15 Alg 7): 12M + cheap b3 muls
 EC_ADD_MONT_MULS = 12
 # Montgomery products per operation of the kernels (csrc/bn254.cuh): G1's
@@ -422,17 +425,21 @@ def poseidon_imads(t: int) -> int:
     """32-bit multiplies of one Poseidon hash of width t in its cheapest
     known form: poseidon_mont_muls(t)'s products, with each mix row of k
     products summed before one Montgomery reduction (bn254.cuh `mul_sum`,
-    ROW_PRODUCT_IMADS k + ROW_REDC_IMADS; P1 runs it at t <= 4). The rows:
+    ROW_PRODUCT_IMADS k + ROW_REDC_IMADS; P1 runs it at t <= 4), and each
+    x^5's two squarings at SQR_IMADS (P1 runs them as products). The rows:
     round 0's t rows of t - 1 products (lane 0 folded), t rows of t in each
     of the RF - 2 full rounds between, the last round's row 0, and each
-    partial round's row 0; every other product (x^5's three, a partial
-    round's column-0 products) is reduced alone, MONT_MUL_IMADS."""
+    partial round's row 0. The x^5's: t a full round but round 0's lane 0,
+    one a partial round. Every other product (x^5's last, a partial round's
+    column-0 products) is reduced alone, MONT_MUL_IMADS."""
     from ..hash.poseidon import params_for_t
 
     rf, rp, _, _ = params_for_t(t)
     rows = [t - 1] * t + [t] * ((rf - 2) * t + 1 + rp)
-    alone = poseidon_mont_muls(t) - sum(rows)
-    return alone * MONT_MUL_IMADS + sum(ROW_PRODUCT_IMADS * k + ROW_REDC_IMADS for k in rows)
+    squares = 2 * (rf * t - 1 + rp)
+    alone = poseidon_mont_muls(t) - sum(rows) - squares
+    return (alone * MONT_MUL_IMADS + squares * SQR_IMADS
+            + sum(ROW_PRODUCT_IMADS * k + ROW_REDC_IMADS for k in rows))
 
 
 def _point_words(comps: int, coords: int) -> int:
