@@ -22,9 +22,12 @@ depth-20 graphs at 16 lanes and on a graph holding every op code with edge
 inputs (tools/witness_graphs.edge_case_graph), each W1 launch on its
 segment's slot-file plan (circuit/witness_plan.py; its registers,
 preloaded values, shared memory and blocks per SM printed), lane 0's
-assignment against the host interpreter's integers, and the evaluator's
-lane sweep (16 / 64 / 256 lanes, each equal to the first lanes of the
-widest), (4) a batch of 16
+assignment against the host interpreter's integers, W2 alone on 441 Divs x
+16 lanes whose divisors start with edge values (0, 1, r - 1, R mod r,
+every 2^k, just above r - 2^32, (r -+ 1) / 2; the kernel's own time, its
+wrapper's with the index checks, and its threads a block swept), and the
+evaluator's lane sweep (16 / 64 / 256 lanes, each equal to the first lanes
+of the widest), (4) a batch of 16
 depth-20 RLN proofs through Groth16Prover.prove_batch (witnesses from W1)
 with pairing verification and lane-0 MSMs held against the native host
 MSMs, then a batch of 16 of the multi-message-id circuit (witnesses from
@@ -42,7 +45,8 @@ of one op class), and the profile of a
 warm batch (device busy share, the witness range's device time, top
 kernels), (9) each kernel's work, bound and share of the bound (W1's ms
 and cycles a step beside, and its share of the chain model of
-runtime/profiling.w1_chain_model on phase 8's latencies), (10) the tree
+runtime/profiling.w1_chain_model on phase 8's latencies; W2's cycles an
+inversion), (10) the tree
 and the RLN API, with the launch counters at 0 before and read after: 2^20
 seeded member secrets made Montgomery by K1, their id and rate
 commitments by P1 (the Poseidon kernel) at t = 2 and 3, a depth-20
@@ -169,6 +173,7 @@ class KernelChecks:
         self.errors: dict = {}
         self.times: dict = {}
         self.rows: list = []  # (key, what, ms, shape)
+        self.wrapper_ms: dict = {}  # W2: the wrapper's time beside its kernel's, first check
 
     def run(self, key: str, what: str, kernel, plain, shape, reps: int = 10,
             cold=None) -> None:
@@ -613,12 +618,92 @@ def witness_segments(checks: KernelChecks, label: str, ev, inputs: np.ndarray) -
             log(f"  {key} {what}: max_abs_err {err}")
             if err != 0:
                 raise AssertionError(f"{key} {what}: kernel disagrees with its plain version")
-            rows.append((key, what, err, device_ms(kernel, 3, kernel_s), plain_s * 1e3, shape))
+            ms = device_ms(kernel, 3, kernel_s)
+            if key == "W2":  # the kernel alone; its wrapper's index checks beside
+                log(f"    wrapper (index checks + kernel) {ms:.4f} ms")
+                checks.wrapper_ms.setdefault(key, ms)
+                ms = device_ms(lambda a=args: div_kernel(buf, *a, wk.DIV_THREADS), 3)
+            rows.append((key, what, err, ms, plain_s * 1e3, shape))
     rows.sort(key=lambda r: -r[5].get("steps", 0))
     for key, what, err, ms, plain_ms, shape in rows:
         checks.record(key, what, err, ms, plain_ms, shape, "kernel back to back; plain: host "
                       "clock, one call")
     return wk.words_to_limbs(buf[:, ev.output_slots])
+
+
+DIV_DIRECT = (16, 441)  # W2's direct check: lanes x Divs (the edge graph's group)
+DIV_SWEEP = (32, 64, 128, 256)  # W2's threads per block
+
+
+def div_edge_values() -> list:
+    """W2's edge divisors: 0, 1, r - 1, one in Montgomery form (2^256 mod
+    r), 2^k for k = 0..253, values just above r - 2^32, (r -+ 1) / 2."""
+    from zerokit_tpu_torch.constants import R
+
+    return ([0, 1, R - 1, (1 << 256) % R, (R - 1) // 2, (R + 1) // 2]
+            + [1 << k for k in range(254)]
+            + [R - (1 << 32) + k for k in (1, 2, 3, 5, 1 << 16, (1 << 31) + 7)])
+
+
+def div_kernel(buf, ia, ib, out, threads: int) -> torch.Tensor:
+    """W2's kernel alone: the launch witness_div makes, without the
+    wrapper's index checks (three device-side asserts, ~15 small torch
+    kernels) and without its launch count."""
+    from zerokit_tpu_torch.ff import _cuda
+
+    lanes, n_slots, _ = buf.shape
+    _cuda.launch("zk_witness_div", buf, ia, ib, out, ia.numel(), n_slots, lanes, threads)
+    return buf
+
+
+def phase_div_direct(rng, checks: KernelChecks, chip) -> None:
+    """W2 on DIV_DIRECT (Div, lane) pairs of seeded values, the divisors
+    led by div_edge_values(), bit for bit against witness_div_plain (the
+    JAX package's Fermat form) through the kernel alone and through the
+    wrapper; each timed, with the kernel's cycles an inversion (its time x
+    the SM clock: one thread's chain); then the kernel at each of DIV_SWEEP
+    threads a block on the first 6 Divs (the multi-message-id graph's group
+    size) and on all of them, each output equal to the plain version's."""
+    from zerokit_tpu_torch.circuit import witness_kernels as wk
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.runtime.profiling import device_ms
+
+    lanes, n = DIV_DIRECT
+    edges = div_edge_values()
+    b = random_elems(rng, R, lanes * n)
+    for j, v in enumerate(edges):
+        b[:, j] = limbs_of(v)
+    limbs = np.zeros((16, 3 * n, lanes), dtype=np.uint32)  # a, b, the quotients
+    limbs[:, :n] = random_elems(rng, R, lanes * n).reshape(16, lanes, n).transpose(0, 2, 1)
+    limbs[:, n:2 * n] = b.reshape(16, lanes, n).transpose(0, 2, 1)
+    buf = wk.limbs_to_words(on_card(limbs))
+    ref = buf.clone()
+    ia = torch.arange(n, dtype=torch.int32, device=buf.device)
+    idx = (ia, ia + n, ia + 2 * n)
+    checks.run("W2", f"witness_div (direct: {n} Divs x {lanes} lanes, {len(edges)} edge "
+               f"divisors)", lambda: div_kernel(buf, *idx, wk.DIV_THREADS),
+               lambda: wk.witness_div_plain(ref, *idx), {"divs": n, "lanes": lanes})
+    ms = checks.rows[-1][2]
+    buf[:, 2 * n:] = 0
+    err = max_abs_err(wk.witness_div(buf, *idx), ref)
+    if err != 0:
+        raise AssertionError("W2 direct: the wrapper disagrees with the plain version")
+    log(f"    wrapper (index checks + kernel) {device_ms(lambda: wk.witness_div(buf, *idx)):.4f} "
+        f"ms, max_abs_err {err}; kernel {ms * 1e-3 * chip.sm_clock_hz:.0f} cycles an "
+        f"inversion; {chip.label()}")
+    for k in (6, n):
+        sub = tuple(t[:k] for t in idx)
+        parts = []
+        for threads in DIV_SWEEP:
+            buf[:, 2 * n:] = 0
+            div_kernel(buf, *sub, threads)
+            if not torch.equal(buf[:, 2 * n:2 * n + k], ref[:, 2 * n:2 * n + k]):
+                raise AssertionError(f"W2 at {threads} threads a block differs from the plain "
+                                     f"version")
+            t = device_ms(lambda: div_kernel(buf, *sub, threads))
+            parts.append(f"{threads}: {t:.4f} ({t * 1e-3 * chip.sm_clock_hz:.0f} cycles)")
+        log(f"    W2 threads a block, {k} Divs x {lanes} lanes (kernel alone, ms): "
+            + ", ".join(parts))
 
 
 def host_lane0(graph, named: dict) -> list:
@@ -631,9 +716,10 @@ def phase_witness(rng, checks: KernelChecks, graph, chip) -> None:
     """W1 and W2 against their plain versions, bit for bit, segment by
     segment: on the every-op edge graph (tools/witness_graphs.edge_case_graph)
     and on both depth-20 graphs at BATCH lanes; lane 0's assignment of each
-    depth-20 graph against the host interpreter's integers; then the
-    evaluator's lane sweep (16 / 64 / 256 lanes of one input set), each
-    assignment equal to the first lanes of the widest one's."""
+    depth-20 graph against the host interpreter's integers; W2's direct
+    check (phase_div_direct); then the evaluator's lane sweep (16 / 64 /
+    256 lanes of one input set), each assignment equal to the first lanes
+    of the widest one's."""
     from zerokit_tpu_torch.circuit.witness_eval import WitnessEvaluator, compile_graph
     from zerokit_tpu_torch.ff.field import FR
     from zerokit_tpu_torch.groth16.prover import random_batch_inputs
@@ -653,6 +739,7 @@ def phase_witness(rng, checks: KernelChecks, graph, chip) -> None:
     ev = WitnessEvaluator(compile_graph(edge), "cuda")
     witness_segments(checks, "edge graph", ev,
                      ev.build_input_buffer({"x": [list(row) for row in values]}, BATCH))
+    phase_div_direct(rng, checks, chip)
 
     ev = WitnessEvaluator(compile_graph(graph), "cuda")
     log(f"  evaluator lane sweep, depth-20 graph, {ev.steps} steps (ms by device_ms over 3 "
@@ -1133,7 +1220,9 @@ def bounds(checks: KernelChecks, chip, warm: dict, profile: dict, latency: dict)
             f"share {sec * 1e3 / ms:.1%}; launches per warm batch {warm.get(key, 0)}"
             + (f"; {ms / shape['steps'] * 1e3:.3f} us, "
                f"{ms * 1e-3 * chip.sm_clock_hz / shape['steps']:.0f} cycles a step"
-               if key == "W1" else ""))
+               if key == "W1" else "")
+            + (f"; {ms * 1e-3 * chip.sm_clock_hz:.0f} cycles an inversion (one thread's "
+               f"chain)" if key == "W2" else ""))
         if key == "W1":
             model_ms = w1_chain_model(chip, latency, **shape) * 1e3
             first.setdefault("W1 chain", (model_ms, "chain"))
@@ -1339,6 +1428,9 @@ def main() -> int:
             kernels[-1]["rebuild_ms"] = min(tree["rebuild_ms"])
             kernels[-1]["rebuild_bound_ms"] = tree["rebuild_bound_ms"]
             kernels[-1]["levels_ms"] = tree["levels_ms"]
+        if key == "W2":  # the inversion chain sets W2's time; ms is the kernel alone
+            kernels[-1]["wrapper_ms"] = checks.wrapper_ms[key]
+            kernels[-1]["cycles_per_inversion"] = ms * 1e-3 * chip.sm_clock_hz
         if key == "W1":  # the step chain, not the bound, sets W1's time
             kernels[-1]["ms_per_step"] = ms / shape["steps"]
             kernels[-1]["cycles_per_step"] = ms * 1e-3 * chip.sm_clock_hz / shape["steps"]

@@ -445,6 +445,31 @@ def test_p1_work_and_bound_pin_the_prediction():
     assert prof.kernel_work("P1", t=2, lanes=10) == (10 * 90640, 10 * 2 * 64)
 
 
+def test_w2_work_is_the_walks_tally():
+    """W2's work a Div: the walk of the kernel's safegcd inverse
+    (tests/test_torch_witness_div.py) tallies 22,265 integer operations,
+    the same on every input, and the product by a adds one CIOS product."""
+    from test_torch_witness_div import safegcd_inv
+
+    for b in (0, 1, R - 1, (R + 1) // 2):
+        tally = safegcd_inv(b)[3]
+        assert sum(tally.values()) == prof.SAFEGCD_OPS == 22265
+    assert prof.WITNESS_DIV_OPS == 22265 + prof.MONT_MUL_IMADS == 22529
+    imads, nbytes = prof.kernel_work("W2", divs=6, lanes=16)
+    assert imads == 6 * 16 * 22529 and nbytes == 6 * 12 + 6 * 16 * 96
+
+
+@pytest.mark.parametrize("divs,bound_us", [(1, 0.0215), (6, 0.1293), (441, 9.5035)])
+def test_w2_bound_pins_the_prediction(divs, bound_us):
+    """PERF.md's W2 bounds at 16 lanes: the multi-message-id graph's groups
+    of 1 and 6 Divs, the edge graph's 441 (phase 3b's direct batch too),
+    each IMAD-bound (16.727 Top/s); Fermat's 382 products (100,848
+    multiplies) charged 4.48x more a Div."""
+    sec, res = prof.kernel_bound("W2", H100, divs=divs, lanes=16)
+    assert res == "imad" and round(sec * 1e6, 4) == bound_us
+    assert round(382 * prof.MONT_MUL_IMADS / prof.WITNESS_DIV_OPS, 2) == 4.48
+
+
 @pytest.mark.parametrize("t", [2, 3, 4, 9])
 def test_p1_squarings_are_the_x5s(t):
     """poseidon_imads charges two squarings an x^5, 2 (RF t - 1 + RP) a

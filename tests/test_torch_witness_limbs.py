@@ -137,7 +137,11 @@ def test_kernel_constants():
     assert value(const_words("kFrOne")) == (1 << 256) % R
     assert value(const_words("kFrR2")) == (1 << 512) % R
     assert value(const_words("kFrHalf")) == (R - 1) // 2
-    assert value(const_words("kFrPm2")) == R - 2
+    # W2's safegcd: r in signed-30-bit limbs and r^-1 mod 2^30
+    limbs = [int(t, 16) for t in re.search(r"kFrS30\[9\] = \{([^}]*)\}", SRC).group(1).split(",")]
+    assert sum(v << (30 * i) for i, v in enumerate(limbs)) == R
+    inv30 = int(re.search(r"constexpr u32 kFrInv30 = (0x[0-9a-f]+)u;", SRC).group(1), 16)
+    assert inv30 * R % (1 << 30) == 1
 
 
 def test_kernel_op_codes_equal_the_compiler():
@@ -148,11 +152,11 @@ def test_kernel_op_codes_equal_the_compiler():
 
 
 def test_div_product_count():
-    """W2's exponent loop: a square per bit of p - 2 from bit 253 down and a
-    product per set bit, then a * b^-1."""
-    e = R - 2
-    assert "for (int i = 253; i >= 0; i--)" in SRC and e.bit_length() == 254
-    assert profiling.WITNESS_DIV_MONT_MULS == e.bit_length() + bin(e).count("1") + 1
+    """W2: the safegcd inverse's 20 batches of 30 divsteps, then a * b^-1,
+    one CIOS product."""
+    assert "constexpr int kBatches = 20, kBatchSteps = 30;" in SRC
+    assert "mul(a, safegcd_inv(b))" in SRC
+    assert profiling.WITNESS_DIV_OPS == profiling.SAFEGCD_OPS + profiling.MONT_MUL_IMADS
 
 
 def test_witness_kernel_work():
@@ -161,5 +165,5 @@ def test_witness_kernel_work():
     assert imads == (10 + 3 * 2 + 2 * 1) * 16 * profiling.MONT_MUL_IMADS
     assert nbytes == 7 * 4 * 16 + (5 + 22) * 16 * 32
     imads, nbytes = profiling.kernel_work("W2", divs=3, lanes=16)
-    assert imads == 3 * 16 * 382 * profiling.MONT_MUL_IMADS
+    assert imads == 3 * 16 * (22265 + profiling.MONT_MUL_IMADS)
     assert nbytes == 3 * 12 + 3 * 3 * 32 * 16

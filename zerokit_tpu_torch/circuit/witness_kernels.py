@@ -15,8 +15,10 @@ convert.
     slots and the register file's size, with the graph's constant table.
     It writes to the slot buffer only the values the plan
     marks (signals, W2's operands, later segments' values).
-  * witness_div (W2, `witness_div`): every Div of one group, a * b^(p-2)
-    with inv(0) = 0, in place (the JAX package's `_div_apply`).
+  * witness_div (W2, `witness_div`): every Div of one group, a * b^-1
+    with inv(0) = 0, in place (the JAX package's `_div_apply`). The
+    kernel inverts by constant-time safegcd; its plain version keeps the
+    JAX package's Fermat power, so the two are independent forms.
 
 The wrappers check shapes, types, and every slot index and reference
 (field_kernels._check_index and W1's record check: device-side asserts on

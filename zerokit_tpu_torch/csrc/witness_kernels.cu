@@ -8,8 +8,10 @@
 //    all the steps of a segment. Each step evaluates W = 4 nodes of one
 //    level, on the slot-file plan of circuit/witness_plan.py.
 // W2 witness_div replaces _div_apply (:418-423): every Div of one group,
-//    a * b^(p-2), inv(0) = 0, one thread per (Div, lane). It runs after its
+//    a * b^-1 with inv(0) = 0, one thread per (Div, lane). It runs after its
 //    segment's steps, whose values it reads, and before the next segment.
+//    The inverse is Bernstein-Yang's constant-time safegcd (below), not the
+//    JAX package's Fermat power b^(p-2).
 //
 // What bounds them: W1 is a chain of ~10.6K dependent steps (depth-20 RLN
 // graph) of 2-3 nodes each, a few Fr products a step, so its time is the
@@ -46,7 +48,12 @@
 //     from_mont -> canonical 8x32-bit limb op -> to_mont, as the JAX code
 //     does; tests/test_torch_witness_limbs.py models that limb code on
 //     Python integers.
-// W2 is bound by its exponentiation chain (382 dependent products a thread).
+// W2 is bound by one thread's inversion chain: 600 divsteps of a few
+// dependent integer ops each and 20 limb updates, where Fermat's power was
+// 382 dependent CIOS products (PERF.md has both on the H100). A group holds
+// too few (Div, lane) pairs to fill the card, so the chain, not the work,
+// sets its time; one thread an inversion, since splitting the serial chain
+// would only add shuffles.
 
 #include <cuda_runtime.h>
 
@@ -70,15 +77,13 @@ enum : int {
   F_SHR, F_BAND, F_BOR, F_BXOR, F_LT, F_GT, F_LEQ, F_GEQ
 };
 
-// 2^256 mod r (one in Montgomery form), 2^512 mod r, (r-1)/2 and r-2
+// 2^256 mod r (one in Montgomery form), 2^512 mod r and (r-1)/2
 __constant__ u32 kFrOne[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
                               0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
 __constant__ u32 kFrR2[8] = {0xae216da7u, 0x1bb8e645u, 0xe35c59e3u, 0x53fe3ab1u,
                              0x53bb8085u, 0x8c49833du, 0x7f4e44a5u, 0x0216d0b1u};
 __constant__ u32 kFrHalf[8] = {0xf8000000u, 0xa1f0fac9u, 0x3cdcb848u, 0x9419f424u,
                                0x40c0ac2eu, 0xdc2822dbu, 0x7098d014u, 0x18322739u};
-__constant__ u32 kFrPm2[8] = {0xefffffffu, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
-                              0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
 
 // a slot's 8 words, 32-byte aligned (the buffer's rows are 8 words)
 __device__ __forceinline__ FrE load_slot(const u32* p) {
@@ -365,14 +370,185 @@ int steps_occupancy(int bytes, int* blocks) {
   return (int)e;
 }
 
-__device__ __forceinline__ FrE fermat_inv(const FrE& b) {
-  FrE r = constant(kFrOne);
-#pragma unroll 1
-  for (int i = 253; i >= 0; i--) {
-    r = sqr(r);
-    if ((kFrPm2[i >> 5] >> (i & 31)) & 1u) r = mul(r, b);
+// ---------------------------------------------------------------------------
+// W2: Fr inversion by safegcd, in constant time
+// ---------------------------------------------------------------------------
+//
+// The 32-bit constant-time form of libsecp256k1's secp256k1_modinv32
+// (Bernstein and Yang, "Fast constant-time gcd computation and modular
+// inversion"; Wuille, "The safegcd implementation in libsecp256k1
+// explained"). f, g, d, e are 9 signed-30-bit limbs (limb i holds bits
+// 30i .. 30i + 29; limbs 0-7 in [0, 2^30), limb 8 signed). Each of 20
+// batches runs 30 half-delta divsteps on the low limbs of f and g alone
+// (divsteps30: zeta = -(delta + 1/2), masks and no branch), then applies
+// their 2x2 matrix to (f, g) exactly and to (d, e) mod r, both divided by
+// 2^30 (update_fg, update_de). 590 divsteps bring g to 0 for any odd
+// modulus below 2^256 (r < 2^254), so the fixed 600 need no test of g:
+// every thread runs the same instructions whatever its input, as Fermat's
+// chain did. g = 0 at the start leaves d = 0, so inv(0) = 0.
+// tests/test_torch_witness_div.py runs this code on Python integers.
+
+constexpr int kM30 = 0x3fffffff;  // 2^30 - 1
+constexpr int kBatches = 20, kBatchSteps = 30;
+constexpr u32 kFrInv30 = 0x10000001u;  // r^-1 mod 2^30
+// r in signed-30 limbs
+__constant__ int kFrS30[9] = {0x30000001, 0x0f87d64f, 0x1b970914, 0x0cfa121e, 0x01585d28,
+                              0x0116da06, 0x1a029b85, 0x139cb84c, 0x00003064};
+
+struct S30 {
+  int v[9];
+};
+struct Trans {  // 2^30 times a batch's matrix [[u, v], [q, r]], entries in [-2^30, 2^30]
+  int u, v, q, r;
+};
+
+// 8 words (a value below 2^256) -> 9 limbs of 30 bits
+__device__ __forceinline__ S30 to_s30(const u32 (&w)[8]) {
+  S30 x;
+  u64 acc = 0;
+  int bits = 0, k = 0;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    if (k < 8) {
+      acc |= (u64)w[k++] << bits;
+      bits += 32;
+    }
+    x.v[i] = (int)(acc & kM30);
+    acc >>= 30;
+    bits -= 30;
   }
-  return r;
+  return x;
+}
+
+// 9 limbs in [0, 2^30) -> 8 words
+__device__ __forceinline__ void from_s30(u32 (&w)[8], const S30& x) {
+  u64 acc = 0;
+  int bits = 0, k = 0;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {
+    acc |= (u64)(u32)x.v[i] << bits;
+    bits += 30;
+    if (bits >= 32) {
+      w[k++] = (u32)acc;
+      acc >>= 32;
+      bits -= 32;
+    }
+  }
+}
+
+// 30 divsteps on the low 30 bits of f and g (f odd). The matrix entries
+// run as unsigned words: a left shift of a negative value is undefined.
+__device__ __forceinline__ int divsteps30(int zeta, u32 f, u32 g, Trans& t) {
+  u32 u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < kBatchSteps; i++) {
+    u32 c1 = (u32)(zeta >> 31);  // zeta < 0
+    u32 c2 = 0u - (g & 1u);  // g odd
+    u32 x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    c1 &= c2;  // zeta < 0 and g odd: swap (f, g) = (g, -f)
+    zeta = (zeta ^ (int)c1) - 1;
+    f += g & c1;
+    u += q & c1;
+    v += r & c1;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t = {(int)u, (int)v, (int)q, (int)r};
+  return zeta;
+}
+
+// (d, e) = (t (d, e) + r (md, me)) / 2^30, md and me chosen so that the low
+// 30 bits vanish; d, e stay in (-2r, r)
+__device__ __forceinline__ void update_de(S30& d, S30& e, const Trans& t) {
+  const int sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int md = (t.u & sd) + (t.v & se);
+  int me = (t.q & sd) + (t.r & se);
+  i64 cd = (i64)t.u * d.v[0] + (i64)t.v * e.v[0];
+  i64 ce = (i64)t.q * d.v[0] + (i64)t.r * e.v[0];
+  md -= (int)((kFrInv30 * (u32)cd + (u32)md) & kM30);
+  me -= (int)((kFrInv30 * (u32)ce + (u32)me) & kM30);
+  cd += (i64)kFrS30[0] * md;
+  ce += (i64)kFrS30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cd += (i64)t.u * d.v[i] + (i64)t.v * e.v[i] + (i64)kFrS30[i] * md;
+    ce += (i64)t.q * d.v[i] + (i64)t.r * e.v[i] + (i64)kFrS30[i] * me;
+    d.v[i - 1] = (int)cd & kM30;
+    e.v[i - 1] = (int)ce & kM30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d.v[8] = (int)cd;
+  e.v[8] = (int)ce;
+}
+
+// (f, g) = t (f, g) / 2^30, exact
+__device__ __forceinline__ void update_fg(S30& f, S30& g, const Trans& t) {
+  i64 cf = (i64)t.u * f.v[0] + (i64)t.v * g.v[0];
+  i64 cg = (i64)t.q * f.v[0] + (i64)t.r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cf += (i64)t.u * f.v[i] + (i64)t.v * g.v[i];
+    cg += (i64)t.q * f.v[i] + (i64)t.r * g.v[i];
+    f.v[i - 1] = (int)cf & kM30;
+    g.v[i - 1] = (int)cg & kM30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f.v[8] = (int)cf;
+  g.v[8] = (int)cg;
+}
+
+// x in (-2r, r), negated when sign < 0 -> [0, r), limbs in [0, 2^30)
+__device__ __forceinline__ void normalize(S30& x, int sign) {
+  int add = x.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) x.v[i] += kFrS30[i] & add;
+  const int neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) x.v[i] = (x.v[i] ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    x.v[i + 1] += x.v[i] >> 30;
+    x.v[i] &= kM30;
+  }
+  add = x.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) x.v[i] += kFrS30[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    x.v[i + 1] += x.v[i] >> 30;
+    x.v[i] &= kM30;
+  }
+}
+
+// b^-1 R mod r for b = bR canonical (Montgomery form), 0 for b = 0. e
+// starts at R^2 mod r, not 1: the updates are linear in (d, e), so d ends
+// at R^2 (bR)^-1 = b^-1 R, the inverse in Montgomery form with no product.
+__device__ __forceinline__ FrE safegcd_inv(const FrE& b) {
+  S30 d = {}, e = to_s30(constant(kFrR2).v), f, g = to_s30(b.v);
+#pragma unroll
+  for (int i = 0; i < 9; i++) f.v[i] = kFrS30[i];
+  int zeta = -1;  // delta = 1/2
+#pragma unroll 1
+  for (int i = 0; i < kBatches; i++) {
+    Trans t;
+    zeta = divsteps30(zeta, (u32)f.v[0], (u32)g.v[0], t);
+    update_de(d, e, t);
+    update_fg(f, g, t);
+  }
+  normalize(d, f.v[8]);  // f = +-1: d = +-b^-1 R
+  FrE x;
+  from_s30(x.v, d);
+  return x;
 }
 
 __global__ void __launch_bounds__(kMaxDivThreads)
@@ -384,7 +560,7 @@ __global__ void __launch_bounds__(kMaxDivThreads)
   u32* base = buf + (i / n_div) * n_slots * 8;
   FrE a = load_slot(base + (i64)__ldg(ia + d) * 8);
   FrE b = load_slot(base + (i64)__ldg(ib + d) * 8);
-  store_slot(base + (i64)__ldg(out + d) * 8, mul(a, fermat_inv(b)));
+  store_slot(base + (i64)__ldg(out + d) * 8, mul(a, safegcd_inv(b)));
 }
 
 }  // namespace

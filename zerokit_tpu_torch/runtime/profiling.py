@@ -62,9 +62,25 @@ EC_OP_MONT_MULS = {
 # F_*, csrc/witness_kernels.cu): Mul 1; the rich bit ops from_mont twice
 # and to_mont once, the signed comparisons from_mont twice; the rest none.
 WITNESS_OP_MONT_MULS = {1: 1, 10: 3, 11: 3, 12: 3, 13: 3, 14: 2, 15: 2, 16: 2, 17: 2}
-# one Div (W2): a square for each of the 254 bits of r - 2, a product for each
-# of its 127 set bits, and a * b^-1
-WITNESS_DIV_MONT_MULS = 254 + 127 + 1
+# One Div (W2, csrc/witness_kernels.cu): the safegcd inverse, then a * b^-1
+# as one CIOS product (MONT_MUL_IMADS). The inverse's 32-bit integer
+# operations, as its C body writes them: an add, sub, and, xor, shift or
+# 32-bit multiply-add one each; a 32x32->64 multiply(-add) two (its lo and
+# hi words, as MONT_MUL_IMADS counts a product's halves) and a 64-bit shift
+# two; the repacking between 8 words and 9 limbs of 30 bits none (layout,
+# like a load). A divstep is 27; a batch of 30 is followed by update_de (174:
+# 2 + 6 + 8 + 6 + 4 + 4 + 8 x 18) and update_fg (124: 4 + 4 + 2 + 2 + 8 x
+# 14); 20 batches, then normalize (105). tests/test_torch_witness_div.py
+# tallies them on its walk of the kernel's code.
+SAFEGCD_BATCHES, SAFEGCD_BATCH_STEPS = 20, 30
+SAFEGCD_DIVSTEP_OPS = 27
+SAFEGCD_UPDATE_DE_OPS = 174
+SAFEGCD_UPDATE_FG_OPS = 124
+SAFEGCD_NORMALIZE_OPS = 105
+SAFEGCD_OPS = (SAFEGCD_BATCHES * (SAFEGCD_BATCH_STEPS * SAFEGCD_DIVSTEP_OPS
+                                  + SAFEGCD_UPDATE_DE_OPS + SAFEGCD_UPDATE_FG_OPS)
+               + SAFEGCD_NORMALIZE_OPS)
+WITNESS_DIV_OPS = SAFEGCD_OPS + MONT_MUL_IMADS
 SLOT_BYTES = 32  # one value in the witness slot buffer: 8 words
 WORD = 4  # bytes of one stored limb (int32 word holding 16 bits)
 LIMBS = 16
@@ -460,7 +476,8 @@ def tail_skipped(p: int) -> int:
 
 
 def kernel_work(key: str, **shape) -> Tuple[int, int]:
-    """(32-bit multiply instructions, bytes of device memory) of one call:
+    """(32-bit multiply instructions (W2: integer operations), bytes of
+    device memory) of one call:
     each input byte read once and each output byte written once, as stored.
     Shapes, as chip_smoke.py's kernel checks give them:
 
@@ -504,10 +521,13 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      did not write and each node's value
                                      (with `stores`, those W1 stores to the
                                      slot buffer), once per lane
-      W2 divs, lanes                 witness_div: WITNESS_DIV_MONT_MULS a Div
-                                     and lane; three int32 indices a Div,
-                                     two operands read and one value written
-                                     a Div and lane
+      W2 divs, lanes                 witness_div: WITNESS_DIV_OPS a Div and
+                                     lane, integer operations of every kind
+                                     at the IMAD rate (the card runs 32-bit
+                                     adds, logic ops and shifts at the same
+                                     64 a clock an SM); three int32 indices
+                                     a Div, two operands read and one value
+                                     written a Div and lane
       P1 t, lanes                    poseidon_perm: poseidon_imads(t) a
                                      lane; t - 1 inputs read and one output
                                      written, 64 B each, a lane
@@ -567,7 +587,7 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                 sched + (shape["reads"] + written) * lanes * SLOT_BYTES)
     if key == "W2":
         divs, lanes = shape["divs"], shape["lanes"]
-        return (divs * lanes * WITNESS_DIV_MONT_MULS * MONT_MUL_IMADS,
+        return (divs * lanes * WITNESS_DIV_OPS,
                 3 * w * divs + 3 * SLOT_BYTES * divs * lanes)
     if key == "P1":
         t, lanes = shape["t"], shape["lanes"]
