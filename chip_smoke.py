@@ -1,4 +1,4 @@
-"""Drives zerokit_tpu_torch's proving path, tree, RLN API and tools path on one NVIDIA GPU.
+"""Drives zerokit_tpu_torch's prover, trees, RLN API, serving surface and tools on one NVIDIA GPU.
 
 Run from the repository root on a machine with the card:
 
@@ -60,7 +60,20 @@ partial-round form) against its dense plain version at every launch shape
 it picks: on the tree's own leaf level and two upper levels in place, on
 the id and rate commitment calls at their own 2^20 lanes, at every
 t = 2..9 from 1 to 4096 lanes with edge lanes, and in its strided form
-against copied inputs. Times are CUDA-event times of calls run back
+against copied inputs, (11) the serving surface at depth 20, with the
+launch counters at 0 before (a) and read after (d): (a) 48 concurrent
+POST /prove from 48 client threads through server.ProverService behind
+its ProverHTTPServer on 127.0.0.1 (the batch sizes, wall proofs/s beside
+the batches' prove_batch time; every reply through POST /verify, all by
+verify_batch, a tampered one invalid; /prove_partial then /finish,
+/keygen, /poseidon, /healthz), (b) runtime/batch_job's checkpointed
+prover on 40 witnesses and its resume, (c) RLN.stateful over a
+persistent PmTree (init_tree_with_leaves, a proof, close and reopen),
+(d) the C ABI (runtime/build.build_ffi, then librln_ffi.so by ctypes
+with ZEROKIT_TORCH_DEVICE=cuda: tree ops, proofs, verify, slashing,
+rln_generate_proof_with_rs byte for byte against the facade,
+rln_generate_proofs of 16), (e) the four CLIs as subprocesses with
+--device cuda. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -71,6 +84,7 @@ The line before the last is the kernel JSON, the last line the device JSON.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -81,6 +95,8 @@ import numpy as np
 import torch
 
 DEPTH, BATCH = 20, 16
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+SCRATCH_DIR = os.path.join(REPO_ROOT, "build")  # git-ignored; phase 11's files
 
 
 def log(msg: str) -> None:
@@ -1166,6 +1182,467 @@ def phase_tree(rng, checks: KernelChecks, chip, smi: str) -> dict:
             "levels_ms": [r["ms"] for r in levels], **facade}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving surface (HTTP service, checkpointed batches, PmTree,
+# the C ABI, the CLIs)
+# ---------------------------------------------------------------------------
+
+SERVE_MEMBERS = 4096  # rate commitments of the tree phase 11 serves from
+SERVE_REQUESTS = 48  # concurrent POST /prove requests
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 16, 50
+CHECKPOINT_WITNESSES, CHECKPOINT_CHUNK = 40, 16
+# tests/test_cli.py's relay script
+RELAY_SCRIPT = "\n".join([
+    "register", "register", "send 0 hello", "send 1 hi there", "send 0 again", "epoch two",
+    "send 0 fresh epoch", "send 9 nobody", "root", "log", "quit", "",
+])
+
+
+class ServingMembers:
+    """SERVE_MEMBERS members from seeded secrets, their rate commitments
+    H(H(secret), limit) by the host hash, held in a depth-20
+    OptimalMerkleTree (hasher on the card; the native library rehashes)."""
+
+    def __init__(self, rng):
+        from zerokit_tpu_torch import hash_to_field_le, poseidon_hash, poseidon_hash_pair
+        from zerokit_tpu_torch.constants import R
+        from zerokit_tpu_torch.tree.merkle import OptimalMerkleTree
+
+        self.secrets = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(SERVE_MEMBERS)]
+        self.rates = [poseidon_hash_pair(poseidon_hash([s]), USER_LIMIT) for s in self.secrets]
+        self.tree = OptimalMerkleTree(TREE_DEPTH, device="cuda")
+        self.tree.set_range(0, self.rates)
+        self.root = self.tree.root()
+        self.ext = poseidon_hash_pair(hash_to_field_le(b"serving epoch"),
+                                      hash_to_field_le(b"serving app"))
+
+    def witness(self, k: int, signal: bytes, tree=None):
+        from zerokit_tpu_torch import RLNWitnessInput, hash_to_field_le
+
+        mp = (tree or self.tree).proof(k)
+        return RLNWitnessInput.new_single(self.secrets[k], USER_LIMIT, 1, mp.get_path_elements(),
+                                          mp.get_path_index(), hash_to_field_le(signal), self.ext)
+
+
+def serve_http(rln, members, smi: str) -> dict:
+    """(a) ProverService behind its ThreadingHTTPServer (ProverHTTPServer,
+    a backlog for a burst) on 127.0.0.1:0: 48
+    concurrent POST /prove from 48 client threads, each reply decoded and
+    verified by POST /verify with its x and the tree's root, all by
+    verify_batch, a tampered one read invalid; the batch sizes; /prove_partial
+    then /finish; /keygen, /poseidon, /healthz."""
+    import http.client
+    import threading
+
+    from zerokit_tpu_torch import hash_to_field_le, poseidon_hash, seeded_keygen
+    from zerokit_tpu_torch.protocol import serialize as ser
+    from zerokit_tpu_torch.protocol.proof import RLNProof
+    from zerokit_tpu_torch.protocol.witness import RLNPartialWitnessInput
+    from zerokit_tpu_torch.server import ProverHTTPServer, ProverService, make_handler
+
+    batches = []  # (batch size, prove_batch host seconds) of each service batch
+    prove_batch = rln.prover.prove_batch
+
+    def timed_prove_batch(named, rs, ss, metrics=None):
+        t0 = time.perf_counter()
+        out = prove_batch(named, rs, ss, metrics=metrics)
+        torch.cuda.synchronize()
+        batches.append((len(rs), time.perf_counter() - t0))
+        return out
+
+    t0 = time.perf_counter()
+    svc = ProverService(rln, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    warm_s = time.perf_counter() - t0
+    rln.prover.prove_batch = timed_prove_batch  # after the warm-up's batch of one
+    server = ProverHTTPServer(("127.0.0.1", 0), make_handler(svc))
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    port = server.server_address[1]
+
+    def post(path: str, payload: dict) -> dict:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request("POST", path, body=json.dumps(payload).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = json.loads(resp.read() or b"{}")
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"POST {path}: HTTP {resp.status} {data}")
+        return data
+
+    try:
+        ws = [members.witness(k, b"http %d" % k) for k in range(SERVE_REQUESTS)]
+        wires = [ser.rln_witness_to_bytes(w).hex() for w in ws]
+        replies = [None] * SERVE_REQUESTS
+        failures = []
+        gate = threading.Barrier(SERVE_REQUESTS + 1)
+
+        def client(k: int) -> None:
+            gate.wait()
+            try:
+                replies[k] = post("/prove", {"witness_hex": wires[k]})["proof_hex"]
+            except BaseException as e:  # re-raised in the main thread below
+                failures.append(f"request {k}: {type(e).__name__}: {e}")
+
+        clients = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_REQUESTS)]
+        for c in clients:
+            c.start()
+        gate.wait()
+        t0 = time.perf_counter()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        if failures:
+            raise AssertionError(f"/prove failed: {failures[:3]}")
+        sizes = [b for b, _ in batches]
+        proved_s = sum(s for _, s in batches)
+        if sum(sizes) != SERVE_REQUESTS or max(sizes) > SERVE_MAX_BATCH or max(sizes) < 2:
+            raise AssertionError(f"service batches {sizes}: not {SERVE_REQUESTS} requests in "
+                                 f"batches of at most {SERVE_MAX_BATCH}, one above 1")
+        proofs = []
+        for k, hexed in enumerate(replies):
+            rp, read = ser.bytes_to_rln_proof(bytes.fromhex(hexed))
+            if read != len(hexed) // 2 or rp.proof_values.x != ws[k].x:
+                raise AssertionError(f"reply {k} does not decode to its request's proof")
+            ok = post("/verify", {"proof_hex": hexed, "x": format(ws[k].x, "x"),
+                                  "roots": [format(members.root, "x")]})
+            if ok.get("valid") is not True:
+                raise AssertionError(f"reply {k} failed POST /verify: {ok}")
+            proofs.append(rp)
+        if not rln.verify_batch([p.proof for p in proofs], [p.proof_values for p in proofs]):
+            raise AssertionError("the service's proofs failed verify_batch")
+        tampered = ser.rln_proof_to_bytes(RLNProof(proof=proofs[1].proof,
+                                                   proof_values=proofs[0].proof_values))
+        bad = post("/verify", {"proof_hex": tampered.hex(), "x": format(ws[0].x, "x"),
+                               "roots": [format(members.root, "x")]})
+        if bad.get("valid") is not False:
+            raise AssertionError(f"a tampered proof read {bad}")
+        log(f"  (a) {SERVE_REQUESTS} concurrent POST /prove from {SERVE_REQUESTS} client threads "
+            f"(ProverService max_batch={SERVE_MAX_BATCH}, max_wait_ms={SERVE_WAIT_MS}; its "
+            f"warm-up, the tables and a throwaway batch of one, {warm_s:.3f} s before serving): "
+            f"wall {wall:.3f} s, {SERVE_REQUESTS / wall:.3f} proofs/s; batches {sizes}; their "
+            f"prove_batch {[round(s, 4) for _, s in batches]} s, sum {proved_s:.3f} s "
+            f"({SERVE_REQUESTS / proved_s:.3f} proofs/s), the service's overhead "
+            f"{wall - proved_s:.3f} s; {smi}")
+        log(f"      every reply decodes and passes POST /verify with its x and the tree's root; "
+            f"all {SERVE_REQUESTS} pass verify_batch; a tampered proof reads valid: false")
+
+        pw = RLNPartialWitnessInput.from_witness(ws[0])
+        t0 = time.perf_counter()
+        partial = post("/prove_partial", {
+            "partial_witness_hex": ser.rln_partial_witness_to_bytes(pw).hex()})
+        partial_s = time.perf_counter() - t0
+        finish_w = members.witness(0, b"http finish")
+        t0 = time.perf_counter()
+        done = post("/finish", {"partial_proof_hex": partial["partial_proof_hex"],
+                                "witness_hex": ser.rln_witness_to_bytes(finish_w).hex()})
+        finish_s = time.perf_counter() - t0
+        ok = post("/verify", {"proof_hex": done["proof_hex"], "x": format(finish_w.x, "x"),
+                              "roots": [format(members.root, "x")]})
+        fp, _ = ser.bytes_to_rln_proof(bytes.fromhex(done["proof_hex"]))
+        if ok.get("valid") is not True or not rln.verify(fp.proof, fp.proof_values):
+            raise AssertionError("/prove_partial then /finish gave a proof that fails")
+        log(f"      /prove_partial {partial_s:.3f} s, then /finish {finish_s:.3f} s: the proof "
+            f"verifies; {smi}")
+        key = post("/keygen", {"seed_hex": b"serving seed".hex()})
+        sk, pk = seeded_keygen(b"serving seed")
+        if int(key["secret"], 16) != int(sk) or int(key["commitment"], 16) != pk:
+            raise AssertionError("/keygen with a seed differs from seeded_keygen")
+        inputs = [members.rates[3], hash_to_field_le(b"poseidon input")]
+        got = int(post("/poseidon", {"inputs": [format(v, "x") for v in inputs]})["hash"], 16)
+        if got != poseidon_hash(inputs):
+            raise AssertionError("/poseidon differs from the host hash")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        conn.close()
+        if health.get("tree_depth") != TREE_DEPTH or health.get("total_proofs") != SERVE_REQUESTS:
+            raise AssertionError(f"/healthz: {health}")
+        log(f"      /keygen equals seeded_keygen, /poseidon the host hash; /healthz {health}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+        rln.prover.prove_batch = prove_batch
+    return {"wall_s": wall, "sizes": sizes, "prove_batch_s": [s for _, s in batches]}
+
+
+def serve_checkpointed(rln, members, smi: str) -> None:
+    """(b) CheckpointedBatchProver over the service's RLN: 40 witnesses in
+    chunks of 16 in a temporary directory, then a second run on it proves
+    nothing and returns the same bytes; every proof verifies."""
+    import tempfile
+
+    from zerokit_tpu_torch.protocol import serialize as ser
+    from zerokit_tpu_torch.runtime.batch_job import CheckpointedBatchProver
+
+    calls = []
+    generate = rln.generate_proofs
+
+    def counted(ws, *args, **kwargs):
+        calls.append(len(ws))
+        return generate(ws, *args, **kwargs)
+
+    rln.generate_proofs = counted
+    try:
+        ws = [members.witness(100 + k, b"checkpointed %d" % k)
+              for k in range(CHECKPOINT_WITNESSES)]
+        os.makedirs(SCRATCH_DIR, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=SCRATCH_DIR) as d:
+            t0 = time.perf_counter()
+            first = CheckpointedBatchProver(rln, d, chunk_size=CHECKPOINT_CHUNK).run(ws)
+            first_s = time.perf_counter() - t0
+            chunks = list(calls)
+            t0 = time.perf_counter()
+            again = CheckpointedBatchProver(rln, d, chunk_size=CHECKPOINT_CHUNK).run(ws)
+            again_s = time.perf_counter() - t0
+    finally:
+        rln.generate_proofs = generate
+    if calls != chunks or chunks != [16, 16, 8]:
+        raise AssertionError(f"checkpointed runs proved chunks {chunks}, then "
+                             f"{calls[len(chunks):]}")
+    if [ser.proof_v3_to_bytes(p, v) for p, v in again] != [
+            ser.proof_v3_to_bytes(p, v) for p, v in first]:
+        raise AssertionError("the resumed run's proofs differ from the first run's")
+    if not rln.verify_batch([p for p, _ in first], [v for _, v in first]):
+        raise AssertionError("a checkpointed proof failed verify_batch")
+    log(f"  (b) CheckpointedBatchProver: {CHECKPOINT_WITNESSES} witnesses in chunks {chunks}, "
+        f"{first_s:.3f} s; the second run on the same directory proved nothing in "
+        f"{again_s:.3f} s and returned the same bytes; all verify (verify_batch); {smi}")
+
+
+def serve_pmtree(members, smi: str) -> None:
+    """(c) RLN.stateful over a persistent PmTree on the card:
+    init_tree_with_leaves of the 4096 rate commitments, one proof from its
+    path verified against its root; the same leaves in a persistent PmTree
+    closed and reopened from its path have the same root, and it equals the
+    OptimalMerkleTree's."""
+    import tempfile
+
+    from zerokit_tpu_torch import RLN, hash_to_field_le
+    from zerokit_tpu_torch.tree.pmtree import PmTree, PmTreeConfig
+
+    os.makedirs(SCRATCH_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=SCRATCH_DIR) as d:
+        path = os.path.join(d, "members.pmtree")
+
+        def persistent():
+            return PmTree(TREE_DEPTH, PmTreeConfig.create(temporary=False, path=path),
+                          device="cuda")
+
+        rln = RLN.stateful(tree=persistent(), device="cuda")
+        t0 = time.perf_counter()
+        rln.init_tree_with_leaves(members.rates)
+        init_s = time.perf_counter() - t0
+        if not isinstance(rln.tree, PmTree) or rln.tree.device != torch.device("cuda"):
+            raise AssertionError(f"init_tree_with_leaves left a {type(rln.tree).__name__} on "
+                                 f"{getattr(rln.tree, 'device', None)}")
+        root = rln.get_root()
+        k = 777
+        w = members.witness(k, b"pmtree member", tree=rln.tree)
+        t0 = time.perf_counter()
+        proof, values = rln.generate_proof(w)
+        prove_s = time.perf_counter() - t0
+        rln.verify_rln_proof(proof, values, hash_to_field_le(b"pmtree member"))
+        rln.tree.close_db_connection()
+        # init_tree_with_leaves rebuilds as type(tree)(depth, device=...), so the
+        # tree it leaves is temporary (the config is dropped, as the JAX facade
+        # drops it): persistence is shown on the path's own tree
+        t0 = time.perf_counter()
+        tree = persistent()
+        tree.set_range(0, members.rates)
+        tree.close_db_connection()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reopened = persistent()
+        reopen_s = time.perf_counter() - t0
+        if not (reopened.root() == root == members.root):
+            raise AssertionError("the reopened PmTree's root differs")
+        reopened.close_db_connection()
+    log(f"  (c) RLN.stateful(tree=PmTree({TREE_DEPTH}, persistent), device='cuda'): "
+        f"init_tree_with_leaves of {SERVE_MEMBERS} rate commitments {init_s:.3f} s; member "
+        f"{k}'s proof from its path ({prove_s:.3f} s) passes verify_rln_proof against its root; "
+        f"the leaves written to a persistent PmTree, closed ({write_s:.3f} s) and reopened from "
+        f"its path ({reopen_s:.3f} s) give the same root, equal to the OptimalMerkleTree's; "
+        f"{smi}")
+
+
+class RlnBuffer(ctypes.Structure):
+    _fields_ = [("ptr", ctypes.POINTER(ctypes.c_uint8)), ("len", ctypes.c_size_t)]
+
+
+def serve_ffi(rln, members, smi: str) -> dict:
+    """(d) The C ABI: build_ffi(), then build/zerokit_tpu_torch/librln_ffi.so
+    through ctypes with ZEROKIT_TORCH_DEVICE=cuda; a stateful depth-20
+    engine (optimal tree) by rln_new; set_leaf, get_merkle_proof,
+    rln_generate_proof, rln_verify, rln_verify_with_roots and
+    rln_recover_id_secret over two signals in one epoch;
+    rln_generate_proof_with_rs against the facade's generate_proof(w, r=,
+    s=) byte for byte; rln_generate_proofs on 16 witnesses, each verified."""
+    from zerokit_tpu_torch.ff.field import DEVICE_ENV
+    from zerokit_tpu_torch.protocol import serialize as ser
+    from zerokit_tpu_torch.runtime.build import build_ffi
+
+    os.environ[DEVICE_ENV] = "cuda"
+    t0 = time.perf_counter()
+    path = build_ffi()
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(path)
+    lib.rln_last_error.restype = ctypes.c_char_p
+    lib.rln_new.restype = ctypes.c_uint64
+    lib.rln_new.argtypes = [ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                            ctypes.c_size_t, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p]
+    if lib.rln_init() != 0:
+        raise AssertionError(f"rln_init: {lib.rln_last_error()}")
+
+    def call(name: str, *args) -> bytes:
+        buf = RlnBuffer()
+        if getattr(lib, name)(*args, ctypes.byref(buf)) != 0:
+            raise AssertionError(f"{name}: {lib.rln_last_error()}")
+        out = ctypes.string_at(buf.ptr, buf.len)
+        lib.rln_buffer_free(ctypes.byref(buf))
+        return out
+
+    def flag(name: str, *args) -> int:
+        ok = ctypes.c_int(-1)
+        if getattr(lib, name)(*args, ctypes.byref(ok)) != 0:
+            raise AssertionError(f"{name}: {lib.rln_last_error()}")
+        return ok.value
+
+    def fr(v: int) -> bytes:
+        return ser.fr_to_bytes(v, False)
+
+    t0 = time.perf_counter()
+    h = lib.rln_new(1, b"single", b"optimal", None, 0, None, 0, None)
+    new_s = time.perf_counter() - t0
+    if h == 0:
+        raise AssertionError(f"rln_new: {lib.rln_last_error()}")
+    try:
+        k = 5
+        if lib.rln_set_leaf(h, k, fr(members.rates[k])) != 0:
+            raise AssertionError(f"rln_set_leaf: {lib.rln_last_error()}")
+        data = call("rln_get_merkle_proof", h, k)
+        elems, used = ser.bytes_to_vec_fr(data, False)
+        bits, _ = ser.bytes_to_vec_u8(data[used:], False)
+        from zerokit_tpu_torch import RLNWitnessInput, hash_to_field_le
+
+        def wire(signal: bytes) -> bytes:
+            return ser.rln_witness_to_bytes(RLNWitnessInput.new_single(
+                members.secrets[k], USER_LIMIT, 1, elems, bits, hash_to_field_le(signal),
+                members.ext))
+
+        proofs, latency = [], []
+        for signal in (b"ffi one", b"ffi two"):
+            wb = wire(signal)
+            t0 = time.perf_counter()
+            proofs.append(call("rln_generate_proof", h, wb, len(wb), 0))
+            latency.append(time.perf_counter() - t0)
+        root = call("rln_get_root", h)
+        roots = ser.vec_fr_to_bytes([ser.bytes_to_fr(root, False)[0]], False)
+        for p, signal in zip(proofs, (b"ffi one", b"ffi two")):
+            x = fr(hash_to_field_le(signal))
+            if (flag("rln_verify", h, p, len(p)) != 1
+                    or flag("rln_verify_with_roots", h, p, len(p), x, roots, len(roots)) != 1):
+                raise AssertionError("an FFI proof failed rln_verify / rln_verify_with_roots")
+        got = call("rln_recover_id_secret", proofs[0], len(proofs[0]), proofs[1], len(proofs[1]))
+        if ser.bytes_to_fr(got, False)[0] != members.secrets[k]:
+            raise AssertionError("rln_recover_id_secret did not give the member's secret")
+        wb = wire(b"ffi with rs")
+        r, s = hash_to_field_le(b"ffi r"), hash_to_field_le(b"ffi s")
+        with_rs = call("rln_generate_proof_with_rs", h, wb, len(wb), 0, fr(r), fr(s))
+        w, _ = ser.bytes_to_rln_witness(wb)
+        facade = ser.proof_v3_to_bytes(*rln.generate_proof(w, r=r, s=s))
+        if with_rs != facade:
+            raise AssertionError("rln_generate_proof_with_rs differs from the facade's proof")
+        ws = [members.witness(200 + j, b"ffi batch %d" % j) for j in range(BATCH)]
+        blob = b"".join(ser.rln_witness_to_bytes(w) for w in ws)
+        t0 = time.perf_counter()
+        out = call("rln_generate_proofs", h, ctypes.c_size_t(BATCH), blob, len(blob), 0)
+        batch_s = time.perf_counter() - t0
+        size = len(proofs[0])
+        if len(out) != BATCH * size:
+            raise AssertionError(f"rln_generate_proofs gave {len(out)} bytes for {BATCH} proofs")
+        for j in range(BATCH):
+            p = out[j * size:(j + 1) * size]
+            if flag("rln_verify", h, p, len(p)) != 1:
+                raise AssertionError(f"batch proof {j} failed rln_verify")
+    finally:
+        lib.rln_free(h)
+    log(f"  (d) C ABI: build_ffi {build_s:.1f} s ({os.path.relpath(path)}); rln_new (stateful, "
+        f"depth {TREE_DEPTH}, optimal tree, on {os.environ[DEVICE_ENV]}) {new_s:.3f} s; "
+        f"rln_generate_proof {latency[0]:.3f} s first, {latency[1]:.3f} s second; both pass "
+        f"rln_verify and rln_verify_with_roots, and rln_recover_id_secret gives the member's "
+        f"secret; rln_generate_proof_with_rs equals the facade's generate_proof(w, r=, s=) byte "
+        f"for byte ({len(with_rs)} B); rln_generate_proofs of {BATCH}: {batch_s:.3f} s "
+        f"({BATCH / batch_s:.3f} proofs/s), each passes rln_verify; {smi}")
+    return {"latency_s": latency, "batch_s": batch_s}
+
+
+def serve_clis(smi: str) -> None:
+    """(e) The CLIs as subprocesses from the repository root, on the card:
+    stateless and multi-message-id (--demo --prove), partial (--demo; it
+    always proves), and the relay REPL at depth 20 with --prove over stdin
+    (tests/test_cli.py's script); each exits 0 and prints its outcome lines."""
+    runs = [
+        ("stateless", ["--demo", "--prove"], None,
+         ["proof verified against accepted roots: True"]),
+        ("partial", ["--demo"], None,
+         ["message 0: finished in", "message 1: finished in", "verified: True"]),
+        ("multi_message_id", ["--demo", "--prove"], None, ["multi proof verified: True"]),
+        ("relay", ["--depth", str(TREE_DEPTH), "--prove"], RELAY_SCRIPT,
+         ["SPAM: user 0 double-signaled", "(matches: True)", "no such user 9", "bye"]),
+    ]
+    for module, args, stdin, outcomes in runs:
+        cmd = [sys.executable, "-m", f"zerokit_tpu_torch.cli.{module}", *args,
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, input=stdin, capture_output=True, text=True, timeout=300,
+                           cwd=REPO_ROOT)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[1:])} exited {r.returncode}: {r.stderr[-3000:]}")
+        missing = [o for o in outcomes if o not in r.stdout]
+        if module == "relay" and r.stdout.count("sent; nullifier") != 3:
+            missing.append("three 'sent; nullifier' lines")
+        if module == "relay" and r.stdout.count("proof verified: True") != 4:
+            missing.append("four 'proof verified: True' lines")
+        if module == "partial" and r.stdout.count("verified: True") != 2:
+            missing.append("two verified messages")
+        if missing:
+            raise AssertionError(f"{module} did not print {missing}:\n{r.stdout[-3000:]}")
+        lines = [ln for ln in r.stdout.splitlines() if any(o in ln for o in outcomes)
+                 or "sent; nullifier" in ln]
+        log(f"  (e) python -m zerokit_tpu_torch.cli.{module} {' '.join(args)} --device cuda: "
+            f"exit 0 in {wall:.1f} s (wall, process start included); {smi}")
+        for ln in lines:
+            log(f"      | {ln[:140]}")
+
+
+def phase_serving(rng, smi: str) -> dict:
+    """Phase 11: (a) to (d) in this process with the launch counters at 0
+    before (a) and read after (d); (e) in subprocesses."""
+    from zerokit_tpu_torch import RLN
+    from zerokit_tpu_torch.runtime.profiling import launch_counts, reset_launches
+
+    t0 = time.perf_counter()
+    members = ServingMembers(rng)
+    log(f"  {SERVE_MEMBERS} seeded members in a depth-{TREE_DEPTH} OptimalMerkleTree "
+        f"({time.perf_counter() - t0:.1f} s, host hash)")
+    reset_launches()
+    rln = RLN.stateless(device="cuda")
+    http = serve_http(rln, members, smi)
+    serve_checkpointed(rln, members, smi)
+    serve_pmtree(members, smi)
+    ffi = serve_ffi(rln, members, smi)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"  (f) launches in phase 11's (a)-(d): {counts}")
+    serve_clis(smi)
+    return {"counts": counts, **http, "ffi": ffi}
+
+
 def kernel_template(key: str, shape: dict):
     """The kernel's name as the profiler shows it (csrc template and its
     arguments), for the check's variant; None for the composite K4+K5."""
@@ -1270,6 +1747,9 @@ DEPTH20_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5", "W1
 MULTI_PATH = DEPTH20_PATH + ("W2",)
 # phase 10's main path: the member tree (K1, P1) and the facade's batches
 TREE_PATH = DEPTH20_PATH + ("P1",)
+# phase 11's serving surface proves through prove_batch; its host trees
+# rehash natively, so P1 is counted but not required there
+SERVING_PATH = DEPTH20_PATH
 
 
 def main() -> int:
@@ -1405,6 +1885,15 @@ def main() -> int:
                                  f"main path")
     bound["P1"] = (tree["bound_ms"], tree["bound_by"])
 
+    # 11. the serving surface -----------------------------------------------
+    log(f"[11] the serving surface at depth {TREE_DEPTH}: the HTTP prover service, "
+        f"checkpointed batches, the PmTree, the C ABI, the CLIs")
+    serving = phase_serving(rng, smi)
+    for key in SERVING_PATH:
+        if serving["counts"][KERNELS[key][3]] <= 0:
+            raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by phase 11's "
+                                 f"serving path")
+
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
         ms, plain_ms, what, shape = checks.times[key]
@@ -1419,7 +1908,7 @@ def main() -> int:
             "name": f"{kname} ({key}: {what})", "route": "cuda",
             "source": f"zerokit_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": main_counts[counter], "launches_multi": multi_counts[counter],
-            "launches_warm": warm_by_key[key],
+            "launches_warm": warm_by_key[key], "launches_serving": serving["counts"][counter],
             "max_abs_err": max(checks.errors[key]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if res == "hbm" else "operations",
             "library_ms": None,

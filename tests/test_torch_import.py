@@ -36,6 +36,8 @@ VERBATIM = [
     "protocol/witness.py",
     "protocol/proof.py",
     "protocol/slashing.py",
+    "protocol/serialize.py",
+    "runtime/batch_job.py",
 ]
 
 
@@ -69,6 +71,17 @@ def test_import_pulls_in_no_jax():
         "import zerokit_tpu_torch.protocol.witness\n"
         "import zerokit_tpu_torch.protocol.proof\n"
         "import zerokit_tpu_torch.protocol.slashing\n"
+        "import zerokit_tpu_torch.protocol.serialize\n"
+        "import zerokit_tpu_torch.tree.pmtree\n"
+        "import zerokit_tpu_torch.runtime.batch_job\n"
+        "import zerokit_tpu_torch.runtime.build\n"
+        "import zerokit_tpu_torch.server\n"
+        "import zerokit_tpu_torch.ffi_glue\n"
+        "import zerokit_tpu_torch.cli._common\n"
+        "import zerokit_tpu_torch.cli.relay\n"
+        "import zerokit_tpu_torch.cli.stateless\n"
+        "import zerokit_tpu_torch.cli.partial\n"
+        "import zerokit_tpu_torch.cli.multi_message_id\n"
         "from zerokit_tpu_torch import RLN, keygen, poseidon_hash, OptimalMerkleTree\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.', 'tools.'))\n"

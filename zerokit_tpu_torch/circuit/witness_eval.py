@@ -27,6 +27,7 @@ compile cache; the kernel takes the step count, so there is no padding.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
@@ -340,6 +341,10 @@ class WitnessEvaluator:
         self.compiled = cg = compiled
         self.graph = compiled.graph
         self.device = dev = resolve_device(device)
+        # the slot buffers are reused by every call of a lane count: one
+        # evaluation at a time (the service's worker and its /finish handler
+        # evaluate from two threads)
+        self._lock = threading.Lock()
 
         def on_dev(x, dtype=torch.int32):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
@@ -427,6 +432,6 @@ class WitnessEvaluator:
         """input_buffer_canon: (16, inputs_size, B) canonical uint32 limbs
         (position 0 holds the constant 1). Returns the full assignment
         (16, n_signals, B) int32 in Montgomery form on the device."""
-        with span("witness.eval"):
+        with self._lock, span("witness.eval"):
             buf = self.run(self.load(input_buffer_canon))
             return wk.words_to_limbs(buf[:, self.output_slots])

@@ -22,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from typing import Optional
 
@@ -68,6 +69,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 build_info: dict = {}
 
 
@@ -172,18 +174,26 @@ def ptxas_report(log: str) -> list:
     return [(name, *vals) for name, vals in entries.items()]
 
 
+def _load(path: str) -> ctypes.CDLL:
+    handle = ctypes.CDLL(path)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    handle.zk_error_string.argtypes = [ctypes.c_int]
+    handle.zk_error_string.restype = ctypes.c_char_p
+    return handle
+
+
 def lib() -> ctypes.CDLL:
-    """The kernel library, built if needed and loaded once."""
+    """The kernel library, built if needed and loaded once: threads that
+    reach the first launch together wait for one build (build() names its
+    temporaries by process only)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(build())
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        handle.zk_error_string.argtypes = [ctypes.c_int]
-        handle.zk_error_string.restype = ctypes.c_char_p
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                _lib = _load(build())
     return _lib
 
 

@@ -24,6 +24,7 @@ final result.
 from __future__ import annotations
 
 import functools
+import os
 from typing import List
 
 import numpy as np
@@ -49,6 +50,16 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass device=\"cpu\" to run on the CPU")
     return dev
+
+
+DEVICE_ENV = "ZEROKIT_TORCH_DEVICE"
+
+
+def device_from_env() -> str:
+    """The device of the entry points that take no device argument (the C
+    ABI's engines, `python -m zerokit_tpu_torch.server`): the environment
+    variable ZEROKIT_TORCH_DEVICE, "cuda" when it is unset."""
+    return os.environ.get(DEVICE_ENV, "cuda")
 
 
 def from_numpy_limbs(arr, device="cuda") -> torch.Tensor:

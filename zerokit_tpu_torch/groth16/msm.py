@@ -17,6 +17,7 @@ stream through passes of LANE_BATCH lanes.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 import torch
@@ -125,16 +126,19 @@ class MSM:
         self.n = len(points)
         self.points = encode_affine_points(points, adapter).to(self.device)
         self._tables = None
+        self._tables_lock = threading.Lock()
 
     def tables(self) -> torch.Tensor:
-        """AoS window-table rows (W*n, 16*C*2), built on first use."""
-        if self._tables is None:
-            # the padding points are infinity, whose tables are (0, 0) rows:
-            # only the real points go through the doublings
-            real = self.points[..., : self.n_real]
-            t = build_window_tables(self.curve, real, self.n_windows, self.c_bits)
-            t = torch.nn.functional.pad(t, (0, self.n - self.n_real))
-            self._tables = tables_to_aos_s(self.adapter, t[None])[0].contiguous()
+        """AoS window-table rows (W*n, 16*C*2), built on first use, once
+        when threads reach the first use together."""
+        with self._tables_lock:
+            if self._tables is None:
+                # the padding points are infinity, whose tables are (0, 0)
+                # rows: only the real points go through the doublings
+                real = self.points[..., : self.n_real]
+                t = build_window_tables(self.curve, real, self.n_windows, self.c_bits)
+                t = torch.nn.functional.pad(t, (0, self.n - self.n_real))
+                self._tables = tables_to_aos_s(self.adapter, t[None])[0].contiguous()
         return self._tables
 
     def scalars_padded(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
@@ -221,10 +225,12 @@ class FusedMSMGroup:
         self.n = first.n
         self.lane_batch = first.lane_batch
         self._tables_cat = None
+        self._tables_lock = threading.Lock()
 
     def tables_cat(self) -> torch.Tensor:
-        if self._tables_cat is None:
-            self._tables_cat = torch.cat([m.tables() for m in self.msms], dim=0)
+        with self._tables_lock:
+            if self._tables_cat is None:
+                self._tables_cat = torch.cat([m.tables() for m in self.msms], dim=0)
         return self._tables_cat
 
     def __call__(self, scalars_list, masks=None):

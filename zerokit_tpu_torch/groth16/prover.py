@@ -23,6 +23,7 @@ complement MSMs, the h MSM and the blinding algebra.
 
 from __future__ import annotations
 
+import random
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -107,6 +108,24 @@ class Groth16Prover:
         self.last_batch: Dict[str, object] = {}
         if self.msm_a.n == self.msm_b1.n == self.msm_l.n:
             self._g1_group = FusedMSMGroup([self.msm_a, self.msm_b1, self.msm_l])
+
+    def warm_up(self) -> None:
+        """Runs once what a first batch runs, so that a service's first
+        request does not: the five MSMs' window tables (whose EC launches
+        build the kernel library, nvcc at first use, on the card), then a
+        throwaway batch of one through prove_batch (the evaluator's slot
+        buffer, the first launch of every kernel and torch op of the path).
+        The batch holds seeded values in every input of the graph, so its
+        proof proves nothing. Without a graph, the tables alone."""
+        for msm in (self.msm_a, self.msm_b1, self.msm_b2, self.msm_h, self.msm_l):
+            msm.tables()
+        if self._g1_group is not None:
+            self._g1_group.tables_cat()
+        if self.graph is not None:
+            rng = random.Random(0)
+            named = {name: [[rng.randrange(R)] for _ in range(size)]
+                     for name, (_, size) in self.graph.input_mapping.items()}
+            self.prove_batch(named, [rng.randrange(R)], [rng.randrange(R)])
 
     def _stage(self, metrics, name: str):
         return stage_timer(metrics, name, self.device)
