@@ -73,7 +73,17 @@ persistent PmTree (init_tree_with_leaves, a proof, close and reopen),
 with ZEROKIT_TORCH_DEVICE=cuda: tree ops, proofs, verify, slashing,
 rln_generate_proof_with_rs byte for byte against the facade,
 rln_generate_proofs of 16), (e) the four CLIs as subprocesses with
---device cuda. Times are CUDA-event times of calls run back
+--device cuda, (12) the mesh prover at depth 20 (parallel/): the
+single-device proofs of a seeded batch of 16 (the phase-5 prover) go to
+the ranks through a file, and launch.py starts (a) one NCCL rank, mesh
+(dp, tp) = (1, 1), (b) two gloo ranks, (1, 2), (c) four gloo ranks,
+(2, 2), all on cuda:0; each rank proves the batch twice through
+RLN.stateless(mesh=) (parallel/dryrun.prove_file) and every rank's
+proofs must equal the single-device proofs and verify; each rank prints
+the second batch's launch counts (counters at 0 before it; K1-K5 and W1
+above 0 in every rank), stage times, wall clock and each collective's
+calls, bytes and seconds. Ranks sharing one card measure parity and
+the collectives' cost, not scaling. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -87,6 +97,7 @@ import argparse
 import ctypes
 import json
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -265,21 +276,29 @@ def ec_inputs(rng, comps: int, n: int):
     return p, q
 
 
-def main_path_shapes(prover) -> dict:
-    """The widths the proving path of one BATCH gives the curve kernels, by
-    MSM pass (the a/b1/l group and h on G1, b2 on G2): the fine scan's
+def main_path_shapes(prover, tp: int = 1, batch: int = BATCH) -> dict:
+    """The widths the proving path of `batch` lanes gives the curve kernels,
+    by MSM pass (the a/b1/l group and h on G1, b2 on G2): the fine scan's
     (outer, k, inner) index, the coarse scan's (outer, k, inner) rows and
-    the bucket adds' lanes."""
-    from zerokit_tpu_torch.groth16.msm import N_BUCKETS, _window_group, block_size_for
+    the bucket adds' lanes. With tp > 1, those of the last tp rank's shard
+    of a ShardedMSM (parallel/sharded.py: the points padded to a multiple
+    of tp * K_BLOCK, the last shard holding the padding)."""
+    from zerokit_tpu_torch.groth16.msm import (K_BLOCK, N_BUCKETS, _window_group,
+                                               block_size_for)
 
     shapes = {}
     for name, comps, msm, members in (("ab1l", 1, prover.msm_a, 3), ("b2", 2, prover.msm_b2, 1),
                                       ("h", 1, prover.msm_h, 1)):
-        lanes = members * BATCH
+        n, n_real = msm.n, msm.n_real
+        if tp > 1:
+            gran = tp * K_BLOCK
+            n = max(gran, -(-n_real // gran) * gran) // tp
+            n_real = min(max(n_real - (tp - 1) * n, 0), n)
+        lanes = members * batch
         g = _window_group(lanes, comps)
-        k = block_size_for(msm.n)
-        nb = msm.n // k
-        shapes[name] = {"comps": comps, "n": msm.n, "n_real": msm.n_real, "members": members,
+        k = block_size_for(n)
+        nb = n // k
+        shapes[name] = {"comps": comps, "n": n, "n_real": n_real, "members": members,
                         "fine": (g * nb, k, lanes), "coarse": (g, nb, lanes),
                         "buckets": g * N_BUCKETS * lanes}
     return shapes
@@ -332,13 +351,13 @@ SWEEP_CHUNKS = (8, 16, 32, 64, 128)
 SWEEP_THREADS = (64, 128, 256)  # threads per block of K2 and of the fine scan
 
 
-def phase_scans(rng, checks: KernelChecks, shapes: dict) -> dict:
+def phase_scans(rng, checks: KernelChecks, shapes: dict, sweep: bool = True) -> dict:
     """K3: the fine scan through a real sorted index (a/b1/l and b2) and the
     coarse scan (a/b1/l, b2, h), bit for bit against their plain versions;
-    the fine scan's block sizes (the same arithmetic, so each equals the
-    default's output) and the coarse scan's chunk counts (each held against
-    the plain version of its own grouping), timed. Returns each fine scan's
-    (table, index, digits) by pass."""
+    with sweep, the fine scan's block sizes (the same arithmetic, so each
+    equals the default's output) and the coarse scan's chunk counts (each
+    held against the plain version of its own grouping), timed. Returns
+    each fine scan's (table, index, digits) by pass."""
     from zerokit_tpu_torch.ff import field_kernels as fk
     from zerokit_tpu_torch.runtime.profiling import device_ms
 
@@ -355,12 +374,14 @@ def phase_scans(rng, checks: KernelChecks, shapes: dict) -> dict:
                    lambda: fk.ec_scan_gather_plain(comps, table, index),
                    {"kind": "mixed", "comps": comps, "k": k, "lanes": outer * inner, **work},
                    reps=3)
-        fine_sweep.append(block_sweep(
-            f"ec_scan_gather {name} g{comps} N={outer * inner}",
-            lambda threads: fk.ec_scan_gather(comps, table, index, threads), reps=3))
-    log("  fine-scan block sweep (threads per block; kernel ms by device_ms over 3 calls):")
-    for line in fine_sweep:
-        log(line)
+        if sweep:
+            fine_sweep.append(block_sweep(
+                f"ec_scan_gather {name} g{comps} N={outer * inner}",
+                lambda threads: fk.ec_scan_gather(comps, table, index, threads), reps=3))
+    if sweep:
+        log("  fine-scan block sweep (threads per block; kernel ms by device_ms over 3 calls):")
+        for line in fine_sweep:
+            log(line)
     coarse_x = {}
     for name in ("ab1l", "b2", "h"):
         sh = shapes[name]
@@ -371,6 +392,8 @@ def phase_scans(rng, checks: KernelChecks, shapes: dict) -> dict:
                    f"chunks={fk.SCAN_CHUNKS}",
                    lambda: fk.ec_scan_excl(comps, x), lambda: fk.ec_scan_excl_plain(comps, x),
                    {"kind": "excl", "comps": comps, "k": k, "lanes": outer * inner}, reps=10)
+    if not sweep:
+        return passes
     log("  coarse-scan chunk sweep (threads per lane; kernel ms by device_ms over 10 calls, "
         "each bit-exact against the plain version of its grouping):")
     for name, x in coarse_x.items():
@@ -404,11 +427,13 @@ def phase_ec_sweep(rng, shapes: dict) -> None:
                             lambda threads: fk.ec_op(op, comps, p, q, threads)))
 
 
-def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict) -> None:
+def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict,
+                      sweep: bool = True) -> None:
     """K2's Q_d add (ec_add_gather) at the bucket adds' widths, on the fine
     and coarse prefixes of phase_scans' fine-scan inputs, through the rows
     that the pass's own counts give (msm_fused.bucket_counts, bucket_rows);
-    every 7th bucket is flagged empty besides the pass's own empty ones."""
+    every 7th bucket is flagged empty besides the pass's own empty ones.
+    With sweep, its block sizes too."""
     from zerokit_tpu_torch.ff import field_kernels as fk
     from zerokit_tpu_torch.groth16.msm import N_BUCKETS
     from zerokit_tpu_torch.groth16.msm_fused import bucket_counts, bucket_rows
@@ -437,6 +462,8 @@ def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict) -> None:
                    lambda: fk.ec_add_gather_plain(comps, fine_rows, fidx, coarse_rows, cidx,
                                                   empty),
                    work)
+        if not sweep:
+            continue
         log("  K2 gather block sweep (threads per block; kernel ms by device_ms over 10 calls):")
         log(block_sweep(f"ec_add_gather g{comps} ({name}), {empty.numel()} lanes",
                         lambda threads: fk.ec_add_gather(comps, fine_rows, fidx, coarse_rows,
@@ -1643,6 +1670,196 @@ def phase_serving(rng, smi: str) -> dict:
     return {"counts": counts, **http, "ffi": ffi}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mesh prover (parallel/) at depth 20
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = (("a", 1, "nccl"), ("b", 2, "gloo"), ("c", 4, "gloo"))  # label, ranks, backend
+MESH_TIMEOUT = 300  # seconds a run's ranks may take before they are killed
+
+
+def mesh_shape(world: int) -> tuple:
+    """(dp, tp) of a run's ranks: parallel/dryrun.dryrun_mesh's rule."""
+    tp = 2 if world % 2 == 0 else 1
+    return world // tp, tp
+
+
+def small_dft_plain(x: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
+    """Plain version of ntt_sharded._local_small_dft: y[k1] = sum_i1
+    W[k1][i1] x[i1], one FrPlain product and add at a time."""
+    from zerokit_tpu_torch.ff.field import FrPlain
+
+    w = on_card(mat)  # (16, n1, n1)
+    l, b, n1, m = x.shape
+    rows = []
+    for k1 in range(n1):
+        acc = None
+        for i1 in range(n1):
+            wk = w[:, k1, i1][:, None, None].expand(l, b, m).contiguous()
+            term = FrPlain.mul(x[:, :, i1].contiguous(), wk)
+            acc = term if acc is None else FrPlain.add(acc, term)
+        rows.append(acc)
+    return torch.stack(rows, dim=2)
+
+
+def tree_plain(comps: int, gathered: torch.Tensor) -> torch.Tensor:
+    """Plain version of sharded._tree_reduce_points on (D, 16, C, 3, B): the
+    same halving rounds (partial i meets partial half + i, the odd one
+    carried), each add by ec_op_plain."""
+    from zerokit_tpu_torch.ff import field_kernels as fk
+
+    parts = list(gathered.unbind(0))
+    while len(parts) > 1:
+        half = len(parts) // 2
+        parts = ([fk.ec_op_plain("add", comps, parts[i].contiguous(),
+                                 parts[half + i].contiguous()) for i in range(half)]
+                 + parts[2 * half:])
+    return parts[0]
+
+
+def phase_mesh_kernels(rng, checks: KernelChecks, prover) -> None:
+    """Phase 12's kernels at the shapes the mesh path gives them in each run
+    with tp > 1, against their plain versions on the same card tensors:
+    the Bailey NTT of the sharded QAP lift (parallel/ntt_sharded.py) on the
+    run's a/b/c rows (3 x the dp rank's lanes): the small DFT's and the
+    twiddle's K1 products, the row powers' K1 product, the local
+    length-n2 NTT's K4 stages and K5 tail (the inverse with its 1/N
+    table), and natural_ntt whole against natural_ntt_plain; then the
+    ShardedMSM pass of the last tp rank's shard (K3 fine and coarse, K2's
+    bucket add) and the tp combine's K2 tree (_tree_reduce_points at D = 2
+    and 4, the a/b1/l, b2 and h accumulators' widths) against tree_plain."""
+    from types import SimpleNamespace
+
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.ff import ntt_kernels as nk
+    from zerokit_tpu_torch.ff.field import FrField, FrPlain
+    from zerokit_tpu_torch.ff.fq2 import Fq2Adapter, FqAdapter
+    from zerokit_tpu_torch.groth16 import ntt as ntt_host
+    from zerokit_tpu_torch.groth16.curve import CurveOps
+    from zerokit_tpu_torch.parallel import ntt_sharded as ns
+    from zerokit_tpu_torch.parallel.sharded import _tree_reduce_points
+
+    n = prover.mapper.domain_size
+    root = ntt_host.coset_root_2n(n)
+    for label, world, _ in MESH_RUNS:
+        dp, tp = mesh_shape(world)
+        if tp == 1:  # the one-device shapes: phase 3
+            continue
+        lanes = BATCH // dp
+        rows, n2 = 3 * lanes, n // tp
+        m = n2 // tp
+        log(f"  ({label}) (dp, tp) = ({dp}, {tp}): the Bailey NTT on (16, {rows}, {n}), "
+            f"n1 = {tp}, n2 = {n2}; the MSM shards of {lanes} lanes")
+        for inverse in (True, False):
+            way = "inverse" if inverse else "forward"
+            x = on_card(random_elems(rng, R, rows * n2).reshape(16, rows, tp, m))
+            mat = ns._small_dft_matrix(tp, inverse)
+            checks.run("K1", f"Bailey small DFT {way}, (16, {rows}, {tp}, {m})",
+                       lambda: ns._local_small_dft(x, mat), lambda: small_dft_plain(x, mat),
+                       {"lanes": rows * tp * tp * m, "field": "fr"})
+            for t in range(tp):
+                tw = ns._table(ns._twiddle_block(n, tp, inverse), x)[
+                    :, None, :, t * m:(t + 1) * m].expand(x.shape).contiguous()
+                checks.run("K1", f"Bailey twiddle {way}, tp rank {t}, (16, {rows}, {tp}, {m})",
+                           lambda: FrField.mul(x, tw), lambda: FrPlain.mul(x, tw),
+                           {"lanes": rows * tp * m, "field": "fr"})
+            y = on_card(random_elems(rng, R, rows * n2).reshape(16, rows, n2))
+            scale = pow(n, -1, R) if inverse else 1
+            table = (None if scale == 1 else
+                     ntt_host._device_table(ntt_host._constant_table(n2, scale), y))
+            s = n2 // 2
+            while s >= nk.tail_size(n2):
+                stw = nk._stage_tw(n2, s, inverse, "cuda")
+                checks.run("K4", f"ntt_stage dif {way} m={s}, (16, {rows}, {n2})",
+                           lambda: nk.ntt_stage(y, stw, s, "dif"),
+                           lambda: nk.ntt_stage_plain(y, stw, s, "dif"),
+                           {"rows": rows, "n": n2, "m": s, "dif": True})
+                s //= 2
+            ttw = nk._tail_tw(n2, inverse, "cuda")
+            fused = "with the 1/N" if table is not None else "without"
+            checks.run("K5", f"ntt_tail dif {way} {fused} table, P={nk.TAIL}, (16, {rows}, {n2})",
+                       lambda: nk.ntt_tail(y, ttw, table, "dif"),
+                       lambda: nk.ntt_tail_plain(y, ttw, table, "dif"),
+                       {"rows": rows, "n": n2, "p": nk.TAIL, "table": table is not None,
+                        "dif": True})
+            checks.run("K4+K5", f"natural_ntt {way} (scale {'1/N' if inverse else '1'}), "
+                       f"(16, {rows}, {n2}), against natural_ntt_plain",
+                       lambda: ntt_host.natural_ntt(y, inverse, scale),
+                       lambda: ntt_host.natural_ntt_plain(y, inverse, scale),
+                       {"rows": rows, "n": n2, "p": nk.TAIL}, reps=3)
+        for t in range(tp):
+            y = on_card(random_elems(rng, R, rows * n2).reshape(16, rows, n2))
+            pw = ns.row_powers(n, root, SimpleNamespace(tp=tp, tp_index=t), y).expand(
+                y.shape).contiguous()
+            checks.run("K1", f"row powers, tp rank {t}, (16, {rows}, {n2})",
+                       lambda: FrField.mul(y, pw), lambda: FrPlain.mul(y, pw),
+                       {"lanes": rows * n2, "field": "fr"})
+        shapes = main_path_shapes(prover, tp, lanes)
+        log(f"  ({label}) the last tp rank's MSM shard: {shapes}")
+        passes = phase_scans(rng, checks, shapes, sweep=False)
+        phase_bucket_adds(checks, shapes, passes, sweep=False)
+        del passes
+        for name, adapter, width in (("ab1l", FqAdapter, 3 * lanes), ("b2", Fq2Adapter, lanes),
+                                     ("h", FqAdapter, lanes)):
+            comps = adapter.components
+            for d in (2, 4):
+                parts = []
+                for _ in range(d // 2):
+                    p_np, q_np = ec_inputs(rng, comps, max(width, 11))
+                    parts += [p_np[..., :width], q_np[..., :width]]
+                g = on_card(np.stack(parts))  # (D, 16, C, 3, width)
+                cv = CurveOps(adapter)
+                checks.run("K2", f"_tree_reduce_points g{comps} ({name}) D={d}, {width} lanes",
+                           lambda: _tree_reduce_points(cv, g), lambda: tree_plain(comps, g),
+                           {"op": "add", "comps": comps, "lanes": (d - 1) * width,
+                            "skipped": 0})
+
+
+def phase_mesh(rng, prover, smi: str) -> dict:
+    """Phase 12: the single-device proofs of a seeded batch, then each mesh
+    run's ranks (parallel/dryrun.prove_file) against them."""
+    from zerokit_tpu_torch.ff.field import decode_canonical_fast
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+    from zerokit_tpu_torch.parallel.launch import launch
+
+    named, rs, ss = random_batch_inputs(rng, BATCH, DEPTH)
+    proofs = prover.prove_batch(named, rs, ss)
+    verify_batch(prover, proofs)
+    zc = prover.last_batch["z_canon"].cpu()
+    public = [decode_canonical_fast(zc[:, 1:prover.num_inputs, b]) for b in range(BATCH)]
+    os.makedirs(SCRATCH_DIR, exist_ok=True)
+    path = os.path.join(SCRATCH_DIR, "mesh_batch.pkl")
+    with open(path, "wb") as f:
+        pickle.dump({"named": named, "rs": rs, "ss": ss, "proofs": proofs,
+                     "public_inputs": public}, f)
+    runs = {}
+    for label, world, backend in MESH_RUNS:
+        t0 = time.perf_counter()
+        reports = launch(world, "zerokit_tpu_torch.parallel.dryrun:prove_file", (path, "cuda"),
+                         backend=backend, timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        shape = (max(r["dp_index"] for r in reports) + 1, max(r["tp_index"] for r in reports) + 1)
+        log(f"  ({label}) {world} {backend} rank(s), mesh (dp, tp) = {shape}, on "
+            f"{reports[0]['device']}: {wall:.1f} s wall, process start included; every rank's "
+            f"{BATCH} proofs (both batches) equal the single-device proofs and verify; {smi}")
+        for rep in reports:
+            coll = {k: (v["calls"], v["bytes_in"], v["bytes_out"], round(v["seconds"], 6))
+                    for k, v in rep["collectives"].items()}
+            stages = {k: round(v, 6) for k, v in rep["stages"].items()}
+            log(f"    rank {rep['rank']} ({rep['dp_index']}, {rep['tp_index']}): ready "
+                f"{rep['ready_s']:.3f} s, first batch {rep['cold_wall_s']:.4f} s, second "
+                f"{rep['wall_s']:.4f} s; lift sharded {rep['sharded_lift']}, a/b1/l fused "
+                f"{rep['fused']}; stages {stages}")
+            log(f"      collectives (calls, bytes in, bytes out, s): {coll}")
+            log(f"      launches: {rep['counts']}")
+            for key in DEPTH20_PATH:
+                if rep["counts"][KERNELS[key][3]] <= 0:
+                    raise AssertionError(f"({label}) rank {rep['rank']}: {key} "
+                                         f"{KERNELS[key][0]} was not launched")
+        runs[label] = {"wall_s": wall, "reports": reports}
+    return runs
+
+
 def kernel_template(key: str, shape: dict):
     """The kernel's name as the profiler shows it (csrc template and its
     arguments), for the check's variant; None for the composite K4+K5."""
@@ -1893,6 +2110,12 @@ def main() -> int:
         if serving["counts"][KERNELS[key][3]] <= 0:
             raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by phase 11's "
                                  f"serving path")
+
+    # 12. the mesh prover ----------------------------------------------------
+    log(f"[12] the mesh prover at depth {DEPTH}, batch {BATCH}: (a) NCCL (1, 1), (b) gloo "
+        f"(1, 2), (c) gloo (2, 2), every rank on cuda:0")
+    phase_mesh_kernels(rng, checks, prover)
+    phase_mesh(rng, prover, smi)
 
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():

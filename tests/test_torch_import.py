@@ -82,6 +82,10 @@ def test_import_pulls_in_no_jax():
         "import zerokit_tpu_torch.cli.stateless\n"
         "import zerokit_tpu_torch.cli.partial\n"
         "import zerokit_tpu_torch.cli.multi_message_id\n"
+        "import zerokit_tpu_torch.parallel.sharded\n"
+        "import zerokit_tpu_torch.parallel.ntt_sharded\n"
+        "import zerokit_tpu_torch.parallel.launch\n"
+        "import zerokit_tpu_torch.parallel.dryrun\n"
         "from zerokit_tpu_torch import RLN, keygen, poseidon_hash, OptimalMerkleTree\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'zerokit_tpu.', 'tools.'))\n"

@@ -9,10 +9,15 @@ Here there is ONE runtime-composed object:
     rln = RLN.stateful(tree=OptimalMerkleTree(20))
     rln = RLN.stateless(zkey_bytes=..., graph_bytes=...)
 
-Counterpart of zerokit_tpu/api.py; `mesh=` becomes `device=` ("cuda" by
-default: the constructors raise without a card; tests pass "cpu"). The
-stateful tree is the host OptimalMerkleTree, whose rehash runs in the
-native host library when it loads (tree/merkle.py).
+Counterpart of zerokit_tpu/api.py, with `device=` beside `mesh=` ("cuda" by
+default: the constructors raise without a card; tests pass "cpu"). With
+`mesh=` (a parallel.sharded.Mesh), every rank builds the same RLN and
+calls the same methods with the same inputs: the prover shards the batch
+over dp and the MSMs and the QAP lift over tp, and every rank gets the
+whole batch's proofs; the host work (witness checks, proof values,
+verification) runs on every rank. The stateful tree is the host
+OptimalMerkleTree, whose rehash runs in the native host library when it
+loads (tree/merkle.py).
 
 Proving is batch-first: `generate_proofs` evaluates witnesses, runs the
 QAP witness map and all MSMs for the whole batch on the device
@@ -72,13 +77,13 @@ def default_graph(mode: str = "single") -> Graph:
 class RLN:
     """RLN proving/verification engine with optional tree state."""
 
-    def __init__(self, zkey: Zkey, graph: Graph, tree=None, device="cuda"):
-        """device: where the prover runs (one card; the multi-device path is
-        not ported)."""
+    def __init__(self, zkey: Zkey, graph: Graph, tree=None, device="cuda", mesh=None):
+        """device: where the prover runs; mesh: a parallel.sharded.Mesh to
+        prove over instead, on the mesh's device."""
         self.zkey = zkey
         self.graph = graph
         self.tree = tree
-        self.prover = Groth16Prover(zkey, graph, device=device)
+        self.prover = Groth16Prover(zkey, graph, device=device, mesh=mesh)
         self.device = self.prover.device
         self.pvk = prepare_verifying_key(zkey.pk.vk)
 
@@ -91,12 +96,13 @@ class RLN:
         zkey_bytes: Optional[bytes] = None,
         graph_bytes: Optional[bytes] = None,
         device="cuda",
+        mesh=None,
     ) -> "RLN":
         zkey = zkey_from_bytes(zkey_bytes) if zkey_bytes else default_zkey(mode)
         graph = (
             graph_from_bytes(graph_bytes) if graph_bytes else default_graph(mode)
         )
-        return cls(zkey, graph, device=device)
+        return cls(zkey, graph, device=device, mesh=mesh)
 
     @classmethod
     def stateful(
@@ -106,8 +112,9 @@ class RLN:
         zkey_bytes: Optional[bytes] = None,
         graph_bytes: Optional[bytes] = None,
         device="cuda",
+        mesh=None,
     ) -> "RLN":
-        rln = cls.stateless(mode, zkey_bytes, graph_bytes, device=device)
+        rln = cls.stateless(mode, zkey_bytes, graph_bytes, device=device, mesh=mesh)
         rln.tree = (
             tree if tree is not None
             else OptimalMerkleTree(rln.graph.tree_depth, device=rln.device)
@@ -178,6 +185,16 @@ class RLN:
 
     # -- proving ------------------------------------------------------------
 
+    def _random_scalars(self, count: int) -> List[int]:
+        """count random blinding scalars in [0, r). Under a mesh, rank 0's
+        draws on every rank, so that every rank returns the same proofs."""
+        vals = [secrets.randbelow(R) for _ in range(count)]
+        if self.prover.mesh is not None:
+            from .parallel.sharded import broadcast_object
+
+            vals = broadcast_object(self.prover.mesh, vals)
+        return vals
+
     def _batch_named_inputs(
         self, witnesses: Sequence[RLNWitnessInput]
     ) -> Dict[str, List[List[int]]]:
@@ -214,9 +231,9 @@ class RLN:
                 f"ss has {len(ss)} entries, expected {len(witnesses)}"
             )
         if rs is None:
-            rs = [secrets.randbelow(R) for _ in witnesses]
+            rs = self._random_scalars(len(witnesses))
         if ss is None:
-            ss = [secrets.randbelow(R) for _ in witnesses]
+            ss = self._random_scalars(len(witnesses))
         named = self._batch_named_inputs(witnesses)
         proofs = self.prover.prove_batch(named, rs, ss, metrics=metrics)
         return list(zip(proofs, values))
@@ -227,8 +244,8 @@ class RLN:
         r: Optional[int] = None,
         s: Optional[int] = None,
     ) -> Tuple[tuple, RLNProofValues]:
-        rs = [r if r is not None else secrets.randbelow(R)]
-        ss = [s if s is not None else secrets.randbelow(R)]
+        rs = [r if r is not None else self._random_scalars(1)[0]]
+        ss = [s if s is not None else self._random_scalars(1)[0]]
         return self.generate_proofs([witness], rs, ss)[0]
 
     def generate_proofs_with_witness(
@@ -262,9 +279,9 @@ class RLN:
         if ss is not None and len(ss) != batch:
             raise errors.ZerokitError(f"ss has {len(ss)} entries, expected {batch}")
         if rs is None:
-            rs = [secrets.randbelow(R) for _ in witnesses]
+            rs = self._random_scalars(len(witnesses))
         if ss is None:
-            ss = [secrets.randbelow(R) for _ in witnesses]
+            ss = self._random_scalars(len(witnesses))
         flat = [
             calculated_witnesses[b][i] % R
             for i in range(n_wires)
@@ -282,8 +299,8 @@ class RLN:
         r: Optional[int] = None,
         s: Optional[int] = None,
     ) -> Tuple[tuple, RLNProofValues]:
-        rs = [r if r is not None else secrets.randbelow(R)]
-        ss = [s if s is not None else secrets.randbelow(R)]
+        rs = [r if r is not None else self._random_scalars(1)[0]]
+        ss = [s if s is not None else self._random_scalars(1)[0]]
         return self.generate_proofs_with_witness([calculated_witness], [witness], rs, ss)[0]
 
     def generate_partial_proof(self, partial_witness: RLNPartialWitnessInput) -> PartialProof:
@@ -305,8 +322,8 @@ class RLN:
         values = proof_values_from_witness(witness)
         named = self._batch_named_inputs([witness])
         assignment = self.prover.full_assignments(named, 1)
-        r = r if r is not None else secrets.randbelow(R)
-        s = s if s is not None else secrets.randbelow(R)
+        r = r if r is not None else self._random_scalars(1)[0]
+        s = s if s is not None else self._random_scalars(1)[0]
         proof = self.prover.finish_proof(partial, assignment, r, s)
         return proof, values
 

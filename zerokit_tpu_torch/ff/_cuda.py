@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from ..runtime.build import build_lock
+
 CSRC_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "csrc"))
 BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(__file__), "..", "..", "build", "zerokit_tpu_torch")
@@ -98,12 +100,18 @@ def library_path() -> str:
 def build() -> str:
     """Compiles csrc/ into the build directory unless the library for this
     source hash exists: one nvcc per source, all started together, then one
-    link. Records the seconds and the ptxas report in build_info."""
+    link. Records the seconds and the ptxas report in build_info. Processes
+    that call it at once take turns on a lock file in the build directory,
+    so one of them builds and the others find its library."""
     path = library_path()
-    if os.path.exists(path):
-        build_info.update(path=path, seconds=0.0, built=False)
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with build_lock(BUILD_DIR, "libzk_kernels"):
+        if os.path.exists(path):
+            build_info.update(path=path, seconds=0.0, built=False)
+            return path
+        return _build(path)
+
+
+def _build(path: str) -> str:
     stem = f"{path[:-3]}.{os.getpid()}"
     nvcc = _cuda_tool("nvcc")
     t0 = time.perf_counter()

@@ -103,6 +103,39 @@ def _pad_lanes(x: torch.Tensor, width: int) -> torch.Tensor:
     return torch.cat([x, x[..., :1].expand(x.shape[:-1] + (extra,))], dim=-1)
 
 
+def affine_ints(adapter, acc: torch.Tensor) -> List:
+    """Projective accumulators (16, C, 3, B) of the adapter's curve -> host
+    affine points (None for infinity). The few Z inversions run on host
+    integers."""
+    from ..hostmath import bn254
+
+    arr = acc.detach().cpu()
+    batch = arr.shape[3]
+    vals = [FQ.from_mont_int(v) for v in decode_canonical_fast(arr.reshape(NUM_LIMBS, -1))]
+    out = []
+    for b in range(batch):
+        def coord(c, j):
+            return vals[(c * 3 + j) * batch + b]
+
+        if adapter is FqAdapter:
+            x, y, z = coord(0, 0), coord(0, 1), coord(0, 2)
+            if z == 0:
+                out.append(None)
+                continue
+            zi = pow(z, -1, Q)
+            out.append((x * zi % Q, y * zi % Q))
+        else:
+            x = (coord(0, 0), coord(1, 0))
+            y = (coord(0, 1), coord(1, 1))
+            z = (coord(0, 2), coord(1, 2))
+            if z == (0, 0):
+                out.append(None)
+                continue
+            zi = bn254.fq2_inv(z)
+            out.append((bn254.fq2_mul(x, zi), bn254.fq2_mul(y, zi)))
+    return out
+
+
 class MSM:
     """MSM over one fixed base set. adapter = ff.fq2.FqAdapter (G1) or Fq2Adapter (G2)."""
 
@@ -166,6 +199,12 @@ class MSM:
         """scalars_canon: (16, n_real, B) canonical limbs. mask: optional
         (n_real, B) bool; points with False contribute nothing. Returns
         projective accumulators (16, C, 3, B)."""
+        return self.local(scalars_canon, mask)
+
+    def local(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
+        """The MSM of the lanes this process holds, in passes of LANE_BATCH
+        lanes: all of them here; a ShardedMSM's __call__ first splits the
+        batch over its mesh's dp ranks."""
         scalars = self.scalars_padded(scalars_canon, mask)
         batch = scalars.shape[2]
         b0 = self.lane_batch
@@ -180,34 +219,8 @@ class MSM:
 
     def to_affine_ints(self, acc: torch.Tensor) -> List:
         """Projective accumulators (16, C, 3, B) -> host affine points (None
-        for infinity). The few Z inversions run on host integers."""
-        from ..hostmath import bn254
-
-        arr = acc.detach().cpu()
-        batch = arr.shape[3]
-        vals = [FQ.from_mont_int(v) for v in decode_canonical_fast(arr.reshape(NUM_LIMBS, -1))]
-        out = []
-        for b in range(batch):
-            def coord(c, j):
-                return vals[(c * 3 + j) * batch + b]
-
-            if self.adapter is FqAdapter:
-                x, y, z = coord(0, 0), coord(0, 1), coord(0, 2)
-                if z == 0:
-                    out.append(None)
-                    continue
-                zi = pow(z, -1, Q)
-                out.append((x * zi % Q, y * zi % Q))
-            else:
-                x = (coord(0, 0), coord(1, 0))
-                y = (coord(0, 1), coord(1, 1))
-                z = (coord(0, 2), coord(1, 2))
-                if z == (0, 0):
-                    out.append(None)
-                    continue
-                zi = bn254.fq2_inv(z)
-                out.append((bn254.fq2_mul(x, zi), bn254.fq2_mul(y, zi)))
-        return out
+        for infinity)."""
+        return affine_ints(self.adapter, acc)
 
 
 class FusedMSMGroup:

@@ -1,4 +1,4 @@
-"""Radix-2 NTT host tables over BN254 Fr, and the plain coset lift.
+"""Radix-2 NTT host tables over BN254 Fr, the plain coset lift, and fft / ifft.
 
 Counterpart of zerokit_tpu/groth16/ntt.py (ark-poly Radix2EvaluationDomain
 semantics as used by the CircomReduction witness map, rln/src/circuit/
@@ -6,6 +6,13 @@ qap.rs:69-90). The tables are numpy uint32 limb arrays, shared with the
 kernels of ff/ntt_kernels.py. coset_lift here is the plain torch version on
 the (16, n, *batch) layout; the witness map runs ff/ntt_kernels.coset_lift_bn
 on the (16, B, n) layout.
+
+fft / ifft / distribute_powers are the natural-order transforms on the
+kernels' (16, B, n) layout: natural_ntt, a DIF pass (K4 + K5,
+ff/ntt_kernels.dif; a scale such as the inverse's 1/n fused into K5 as a
+constant table) and a bit-reversal gather. natural_ntt_plain is its plain
+version by the other route (bit-reversal gather, then plain DIT stages),
+which launches no kernel: the oracle of the card's checks.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import numpy as np
 import torch
 
 from ..constants import FR_TWO_ADICITY, FR_TWO_ADIC_ROOT, R
-from ..ff.field import FR, FrPlain
+from ..ff.field import FR, FrField, FrPlain
 
 
 class DomainError(ValueError):
@@ -139,3 +146,77 @@ def coset_lift(evals: torch.Tensor, root: int) -> torch.Tensor:
     x = _dif(evals, n, True)
     x = FrPlain.mul(x, _table(_coset_table_brev(n, root), x, (16, n) + (1,) * len(batch)))
     return _dit(x, n, False)
+
+
+# ---------------------------------------------------------------------------
+# Natural-order transforms on the kernels' (16, B, n) layout
+# ---------------------------------------------------------------------------
+
+
+def _mont_limbs(value: int) -> np.ndarray:
+    return FR.encode([value]).numpy().reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _constant_table(n: int, value: int) -> np.ndarray:
+    return _encode_np([value] * n)
+
+
+@functools.lru_cache(maxsize=None)
+def power_table(n: int, root: int) -> np.ndarray:
+    """(16, n) Montgomery table root^i."""
+    acc, powers = 1, []
+    for _ in range(n):
+        powers.append(acc)
+        acc = acc * root % R
+    return _encode_np(powers)
+
+
+def _device_table(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(arr.astype(np.int32)).to(like.device)
+
+
+def _bitrev_index(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(_bitrev(n).astype(np.int64)).to(like.device)
+
+
+def natural_ntt(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Tensor:
+    """The (i)NTT of x (16, B, n) over its last axis in natural order, times
+    scale: one DIF pass with a constant table of `scale` fused into its tail
+    (none for 1), then the bit-reversal gather."""
+    from ..ff import ntt_kernels
+
+    n = x.shape[2]
+    if n == 1:
+        return x if scale == 1 else FrField.mul(x, FrField.const(_mont_limbs(scale), x))
+    table = None if scale == 1 else _device_table(_constant_table(n, scale), x)
+    y = ntt_kernels.dif(x.contiguous(), inverse, table)
+    return y.index_select(2, _bitrev_index(n, y))
+
+
+def fft(x: torch.Tensor) -> torch.Tensor:
+    """Evaluations at g^0..g^(n-1) from coefficients, on (16, B, n)."""
+    return natural_ntt(x, False)
+
+
+def ifft(x: torch.Tensor) -> torch.Tensor:
+    """Coefficients from evaluations at g^0..g^(n-1), on (16, B, n)."""
+    return natural_ntt(x, True, pow(x.shape[2], -1, R))
+
+
+def distribute_powers(x: torch.Tensor, root: int) -> torch.Tensor:
+    """x[..., i] *= root^i on (16, B, n) (ark distribute_powers, const 1)."""
+    n = x.shape[2]
+    tw = _device_table(power_table(n, root), x)[:, None, :].expand(x.shape)
+    return FrField.mul(x, tw)
+
+
+def natural_ntt_plain(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Tensor:
+    """Plain version of natural_ntt, by the other route: the bit-reversal
+    gather first, then plain DIT stages, then the product by scale."""
+    n = x.shape[2]
+    y = x.transpose(1, 2).index_select(1, _bitrev_index(n, x))
+    y = _dit(y, n, inverse).transpose(1, 2)
+    if scale != 1:
+        y = FrPlain.mul(y, FrPlain.const(_mont_limbs(scale), y))
+    return y.contiguous()

@@ -19,6 +19,18 @@ Partial/finish (reference rln/src/partial_proof.rs:108-299): the witness is
 split by a known-mask; prove_partial precomputes the four MSMs over the
 known entries (with the alpha/beta offsets), finish_proof runs the
 complement MSMs, the h MSM and the blinding algebra.
+
+With a mesh (parallel/sharded.py), every rank calls the same methods with
+the same inputs (SPMD). The batch pads to _padded_batch(max(batch, dp))
+lanes and dp rank d takes its contiguous share of them: it evaluates those
+witnesses (W1), maps them (the QAP lift sharded over tp when the domain
+splits, parallel/ntt_sharded.py) and runs their MSMs through ShardedMSMs
+(points sharded over tp). The affine MSM results are gathered over dp
+(stage dp_gather), and every rank assembles and returns the whole batch's
+proofs, equal to the single-device proofs at the same (r, s). One device
+runs the same path with all lanes its own and no gather.
+prove_partial / finish_proof run through the same ShardedMSMs, whose
+__call__ splits and gathers the lanes over dp itself.
 """
 
 from __future__ import annotations
@@ -38,12 +50,13 @@ from ..ff.field import FrField, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
 from ..hostmath import bn254
 from ..runtime.profiling import stage_timer
-from .msm import LANE_BATCH, MSM, FusedMSMGroup
+from .msm import LANE_BATCH, MSM, FusedMSMGroup, _pad_lanes
 from .qap import WitnessMapper
 
 Proof = Tuple[object, object, object]  # (a: G1 affine, b: G2 affine, c: G1 affine)
 
 MIN_BATCH = 4
+_POINT_KEYS = ("a", "b1", "b2", "l", "h")
 # lanes per witness-evaluator pass: wider batches stream through passes of
 # this width (its cost is the step chain, nearly flat in lanes; PERF.md)
 EVAL_CHUNK = 256
@@ -77,15 +90,18 @@ class ProverError(ValueError):
 
 
 class Groth16Prover:
-    def __init__(self, zkey, graph: graphmod.Graph, device="cuda"):
+    def __init__(self, zkey, graph: graphmod.Graph, device="cuda", mesh=None):
         """zkey: a Zkey parsed by either package (the proving key carries
         over as plain ints); graph: the witness graph (None when callers
         hand in assignments). A graph that compile_graph rejects (Pow, Idiv,
         Mod, Shl, UnoOp::Id) is evaluated by the host interpreter; that is
-        decided here, from the graph."""
+        decided here, from the graph. mesh: a parallel.sharded.Mesh to prove
+        over, on the mesh's device (device is then not read); None proves
+        on `device` alone."""
         self.zkey = zkey
         self.graph = graph
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         try:
             compiled = compile_graph(graph) if graph is not None else None
         except UnsupportedGraph:
@@ -95,12 +111,20 @@ class Groth16Prover:
         pk = zkey.pk
         self.num_inputs = zkey.matrices.num_instance_variables
         self.n_wires = len(pk.a_query)
-        self.mapper = WitnessMapper(zkey.matrices, self.device)
-        self.msm_a = MSM(pk.a_query, FqAdapter, self.device)
-        self.msm_b1 = MSM(pk.b_g1_query, FqAdapter, self.device)
-        self.msm_b2 = MSM(pk.b_g2_query, Fq2Adapter, self.device)
-        self.msm_h = MSM(pk.h_query, FqAdapter, self.device)
-        self.msm_l = MSM(pk.l_query, FqAdapter, self.device)
+        self.mapper = WitnessMapper(zkey.matrices, self.device, mesh)
+        if mesh is None:
+            def make(points, adapter):
+                return MSM(points, adapter, self.device)
+        else:
+            from ..parallel.sharded import ShardedMSM
+
+            def make(points, adapter):
+                return ShardedMSM(points, adapter, mesh)
+        self.msm_a = make(pk.a_query, FqAdapter)
+        self.msm_b1 = make(pk.b_g1_query, FqAdapter)
+        self.msm_b2 = make(pk.b_g2_query, Fq2Adapter)
+        self.msm_h = make(pk.h_query, FqAdapter)
+        self.msm_l = make(pk.l_query, FqAdapter)
         # a/b1/l share one padded size on real circuits: one pass for all three
         self._g1_group = None
         # canonical scalars and affine MSM results of the last batch proved,
@@ -173,6 +197,19 @@ class Groth16Prover:
 
     # -- full proving --------------------------------------------------------
 
+    def _batch_target(self, batch: int) -> int:
+        """Power-of-two batch size class, at least the mesh's dp degree."""
+        return _padded_batch(max(batch, self.mesh.dp if self.mesh is not None else 1))
+
+    def _my_lanes(self, batch: int) -> slice:
+        """The lanes this process proves: under a mesh, dp rank d's
+        contiguous share of the batch padded to its size class; else the
+        whole batch."""
+        if self.mesh is None:
+            return slice(0, batch)
+        per = -(-self._batch_target(batch) // self.mesh.dp)
+        return slice(self.mesh.dp_index * per, (self.mesh.dp_index + 1) * per)
+
     def prove_batch(
         self,
         named_inputs: Dict[str, Sequence[Sequence[int]]],
@@ -180,34 +217,53 @@ class Groth16Prover:
         ss: Sequence[int],
         metrics=None,
     ) -> List[Proof]:
-        batch = len(rs)
+        mine = self._my_lanes(len(rs))
+        width = mine.stop - mine.start
+        named = {
+            name: [(list(col) + [col[0]] * (mine.stop - len(col)))[mine] for col in cols]
+            for name, cols in named_inputs.items()
+        }
         with self._stage(metrics, "witness_eval"):
-            assignment = self.full_assignments(named_inputs, batch)
-        return self.prove_batch_with_assignment(assignment, rs, ss, metrics=metrics)
+            assignment = self.full_assignments(named, width)
+        return self._prove_lanes(assignment[:, :, :width], rs, ss, metrics)
 
     def prove_batch_with_assignment(self, assignment, rs, ss, metrics=None) -> List[Proof]:
-        """assignment: (16, n_wires, B) Montgomery limbs; B = len(rs)."""
+        """assignment: (16, n_wires, B) Montgomery limbs of the whole batch
+        (on every rank under a mesh); B >= len(rs)."""
+        mine = self._my_lanes(len(rs))
+        assignment = _pad_lanes(assignment.to(self.device), mine.stop)[:, :, mine]
+        return self._prove_lanes(assignment, rs, ss, metrics)
+
+    def _prove_lanes(self, assignment, rs, ss, metrics) -> List[Proof]:
+        """This process's lanes (16, n_wires, width) through the witness map
+        and the MSMs in passes of LANE_BATCH lanes (a ragged pass padded to
+        its size class, its padding lanes replicating its first); under a
+        mesh the affine results are gathered over dp. Then every lane's
+        proof."""
         batch = len(rs)
-        assignment = assignment.to(self.device)
-        if batch > LANE_BATCH:  # stream wide batches through LANE_BATCH passes
-            proofs: List[Proof] = []
-            for lo in range(0, batch, LANE_BATCH):
-                hi = min(lo + LANE_BATCH, batch)
-                proofs.extend(
-                    self.prove_batch_with_assignment(
-                        assignment[:, :, lo:hi], rs[lo:hi], ss[lo:hi], metrics=metrics
-                    )
-                )
-            if metrics is not None:
-                metrics.batch = batch
-            return proofs
-        target = _padded_batch(batch)
-        if assignment.shape[2] < target:
-            reps = assignment[:, :, :1].expand(-1, -1, target - assignment.shape[2])
-            assignment = torch.cat([assignment, reps], dim=2)
-        assignment = assignment.contiguous()
         if metrics is not None:
             metrics.batch = batch
+        points: Dict[str, list] = {key: [] for key in _POINT_KEYS}
+        for lo in range(0, assignment.shape[2], LANE_BATCH):
+            part = assignment[:, :, lo : lo + LANE_BATCH]
+            width = part.shape[2]
+            part = _pad_lanes(part, _padded_batch(width)).contiguous()
+            res = self._affine_results(part, metrics)
+            for key in _POINT_KEYS:
+                points[key].extend(res[key][:width])
+        if self.mesh is not None:
+            from ..parallel.sharded import all_gather_object
+
+            with self._stage(metrics, "dp_gather"):
+                shares = all_gather_object(self.mesh, points, "dp")
+            points = {key: [p for share in shares for p in share[key]] for key in _POINT_KEYS}
+        points = {key: points[key][:batch] for key in _POINT_KEYS}
+        self.last_batch.update(points)
+        return self._assemble_batch(points, rs, ss, metrics)
+
+    def _affine_results(self, assignment, metrics) -> Dict[str, list]:
+        """The witness map and the five MSMs of the lanes of assignment
+        (16, n_wires, B): their affine results, one list per MSM."""
         with self._stage(metrics, "qap_witness_map"):
             h = self.mapper.witness_map(assignment)
         with self._stage(metrics, "from_mont"):
@@ -222,22 +278,27 @@ class Groth16Prover:
                 l_pts = self.msm_l.to_affine_ints(acc_l)
         else:
             with self._stage(metrics, "msm_a"):
-                a_pts = self.msm_a.to_affine_ints(self.msm_a(z_canon))
+                a_pts = self.msm_a.to_affine_ints(self.msm_a.local(z_canon))
             with self._stage(metrics, "msm_b1"):
-                b1_pts = self.msm_b1.to_affine_ints(self.msm_b1(z_canon))
+                b1_pts = self.msm_b1.to_affine_ints(self.msm_b1.local(z_canon))
             with self._stage(metrics, "msm_l"):
                 l_aux = z_canon[:, self.num_inputs :]
-                l_pts = self.msm_l.to_affine_ints(self.msm_l(l_aux))
+                l_pts = self.msm_l.to_affine_ints(self.msm_l.local(l_aux))
         with self._stage(metrics, "msm_b2"):
-            b2_pts = self.msm_b2.to_affine_ints(self.msm_b2(z_canon))
+            b2_pts = self.msm_b2.to_affine_ints(self.msm_b2.local(z_canon))
         with self._stage(metrics, "msm_h"):
-            h_pts = self.msm_h.to_affine_ints(self.msm_h(h_canon))
-
+            h_pts = self.msm_h.to_affine_ints(self.msm_h.local(h_canon))
         self.last_batch = {
             "z_canon": z_canon, "h_canon": h_canon,
             "a": a_pts, "b1": b1_pts, "b2": b2_pts, "l": l_pts, "h": h_pts,
         }
+        return {"a": a_pts, "b1": b1_pts, "b2": b2_pts, "l": l_pts, "h": h_pts}
+
+    def _assemble_batch(self, points, rs, ss, metrics) -> List[Proof]:
+        batch = len(rs)
         pk = self.zkey.pk
+        a_pts, b1_pts, b2_pts = points["a"], points["b1"], points["b2"]
+        l_pts, h_pts = points["l"], points["h"]
         from ..runtime import native
 
         with self._stage(metrics, "host_assembly"):
@@ -302,9 +363,9 @@ class Groth16Prover:
         return np.concatenate([[True], np.asarray(mask, dtype=bool)])
 
     def _lanes(self, x: torch.Tensor) -> torch.Tensor:
-        """(16, n, 1) -> (16, n, _padded_batch(1)) on the device, the lanes
+        """(16, n, 1) -> (16, n, _batch_target(1)) on the device, the lanes
         replicating lane 0."""
-        width = _padded_batch(1)
+        width = self._batch_target(1)
         return x.to(self.device).expand(-1, -1, width).contiguous()
 
     def prove_partial(self, partial_values: Sequence[Optional[int]]) -> PartialProof:

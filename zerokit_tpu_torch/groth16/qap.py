@@ -9,6 +9,11 @@ fft(distribute_powers(ifft(x), g_2N)).
 On the card the row products run through K1 (ff/field_kernels.mont_mul)
 and the three coset lifts as one batched pass through K4/K5
 (ff/ntt_kernels.coset_lift_bn); CPU tensors take the plain versions.
+Under a mesh whose tp ranks split the domain (parallel/ntt_sharded.fits),
+every tp rank computes the rows for the lanes it is given and the lift is
+the Bailey NTT over tp (parallel/ntt_sharded.sharded_coset_lift); h is
+computed on each rank's rows and gathered over tp, so every tp rank
+returns all of h, which each h-MSM shard reads its point range from.
 witness_map runs under torch.profiler ranges qap.matvec and qap.coset_lift
 (the split of tools/qap_profile.py); they cost nothing without a profiler.
 """
@@ -24,6 +29,7 @@ from ..circuit.zkey import ConstraintMatrices
 from ..constants import NUM_LIMBS
 from ..ff.field import FR, FrField, _carry, resolve_device
 from ..ff.ntt_kernels import coset_lift_bn
+from ..parallel import ntt_sharded
 from ..runtime.profiling import span
 from . import ntt
 
@@ -110,13 +116,21 @@ def sparse_matvec(matrix: SparseMatrix, assignment: torch.Tensor) -> torch.Tenso
 
 
 class WitnessMapper:
-    """Witness map for one circuit's constraint matrices, on one device."""
+    """Witness map for one circuit's constraint matrices, on one device or
+    over a mesh's tp ranks."""
 
-    def __init__(self, matrices: ConstraintMatrices, device="cuda"):
-        self.device = resolve_device(device)
+    def __init__(self, matrices: ConstraintMatrices, device="cuda", mesh=None):
+        """mesh: a parallel.sharded.Mesh; its device is used (device is then
+        not read). The lift shards over tp when the domain splits over the
+        tp ranks, else it runs on each rank whole (a layout decision: no
+        sharded lift exists for that domain)."""
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.num_constraints = matrices.num_constraints
         self.num_inputs = matrices.num_instance_variables
         self.domain_size = ntt.domain_size_for(self.num_constraints + self.num_inputs)
+        if mesh is not None and (mesh.tp == 1 or not ntt_sharded.fits(self.domain_size, mesh.tp)):
+            mesh = None
+        self.mesh = mesh
         self.a = SparseMatrix(matrices.a, self.domain_size, self.device)
         self.b = SparseMatrix(matrices.b, self.domain_size, self.device)
         self.root_2n = ntt.coset_root_2n(self.domain_size)
@@ -136,7 +150,12 @@ class WitnessMapper:
         with span("qap.coset_lift"):
             # one batched lift for a/b/c on the kernels' (16, 3B, n) layout
             stacked = torch.cat([a, b, c], dim=2).transpose(1, 2).contiguous()
-            lifted = coset_lift_bn(stacked, self.root_2n)
+            if self.mesh is None:
+                lifted = coset_lift_bn(stacked, self.root_2n)
+            else:  # this tp rank's rows of the lifted values
+                lifted = ntt_sharded.sharded_coset_lift(stacked, self.mesh, self.root_2n)
             la, lb, lc = lifted.split(batch, dim=1)
             h_bn = FrField.sub(FrField.mul(la, lb), lc)
+            if self.mesh is not None:
+                h_bn = ntt_sharded.gather_rows(h_bn, self.mesh)
             return h_bn.transpose(1, 2).contiguous()

@@ -4,6 +4,8 @@ The libraries go into build/zerokit_tpu_torch/ (git-ignored), never over the
 tracked native/*.so files; runtime/native.py searches that directory first.
 """
 
+import contextlib
+import fcntl
 import os
 import subprocess
 import sys
@@ -14,6 +16,22 @@ NATIVE_DIR = os.path.join(REPO_DIR, "native")
 BUILD_DIR = os.path.join(REPO_DIR, "build", "zerokit_tpu_torch")
 FFI_SOURCE = os.path.join(REPO_DIR, "zerokit_tpu_torch", "native", "rln_ffi.cpp")
 FFI_LIBRARY = os.path.join(BUILD_DIR, "librln_ffi.so")
+
+
+@contextlib.contextmanager
+def build_lock(build_dir: str, name: str):
+    """An exclusive fcntl lock on build_dir/<name>.lock for the block: the
+    processes that build the same thing at once (the ranks of a mesh on a
+    fresh checkout) take turns, and the first builds while the others wait
+    for its result. The lock goes with its process, so a killed build
+    leaves none behind."""
+    os.makedirs(build_dir, exist_ok=True)
+    with open(os.path.join(build_dir, f"{name}.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def build() -> str:
@@ -50,15 +68,15 @@ def build_ffi() -> str:
     which the build gives it (-DZK_REPO_ROOT)."""
     if any(c in REPO_DIR for c in '"\\'):
         raise ValueError(f"repository path holds a quote or a backslash: {REPO_DIR}")
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{FFI_LIBRARY}.{os.getpid()}.tmp"
     cmd = (
         ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", f"-I{NATIVE_DIR}",
          f'-DZK_REPO_ROOT="{REPO_DIR}"', "-o", tmp, FFI_SOURCE]
         + python_flags()
     )
-    subprocess.run(cmd, check=True)
-    os.replace(tmp, FFI_LIBRARY)
+    with build_lock(BUILD_DIR, "librln_ffi"):
+        subprocess.run(cmd, check=True)
+        os.replace(tmp, FFI_LIBRARY)
     return FFI_LIBRARY
 
 
