@@ -83,7 +83,18 @@ proofs must equal the single-device proofs and verify; each rank prints
 the second batch's launch counts (counters at 0 before it; K1-K5 and W1
 above 0 in every rank), stage times, wall clock and each collective's
 calls, bytes and seconds. Ranks sharing one card measure parity and
-the collectives' cost, not scaling. Times are CUDA-event times of calls run back
+the collectives' cost, not scaling. (13) the component tools, with the
+launch counters at 0 before (a) and read after (c): (a)
+tools/bench_components at BC_MAX_LOG2 = 20 (Poseidon pairs up to 2^20, the
+bulk insert of 2^20 leaves, the G1 MSM at 2^16-2^20 points x 4 lanes, fft
+and ifft at 2^20), each config checked exactly against the native host
+library (fft and ifft also on an input that repeats nowhere, against
+their plain versions and fft against the native NTT); (b) tools/ntt_micro
+at n = 8192, B = 64, every kernel call (K4 at m = 1, 8, 64, 512 and n/2
+among them) bit for bit against its plain version, and K4 at m = 2^16 and
+2^19 of n = 2^20 likewise; (c) tools/export_js_fixture --compare, the
+depth-10 fixture proved on the card and equal byte for byte to the tracked
+file; K1-K5, P1 and W1 must each launch. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
 calls each move 25-50 MB, are timed on rotating copies of their tensors
 that together exceed L2 (profiling.l2_cold), the L2-warm time beside.
@@ -295,7 +306,7 @@ def main_path_shapes(prover, tp: int = 1, batch: int = BATCH) -> dict:
             n = max(gran, -(-n_real // gran) * gran) // tp
             n_real = min(max(n_real - (tp - 1) * n, 0), n)
         lanes = members * batch
-        g = _window_group(lanes, comps)
+        g = _window_group(lanes, comps, n=n)
         k = block_size_for(n)
         nb = n // k
         shapes[name] = {"comps": comps, "n": n, "n_real": n_real, "members": members,
@@ -1765,8 +1776,7 @@ def phase_mesh_kernels(rng, checks: KernelChecks, prover) -> None:
                            {"lanes": rows * tp * m, "field": "fr"})
             y = on_card(random_elems(rng, R, rows * n2).reshape(16, rows, n2))
             scale = pow(n, -1, R) if inverse else 1
-            table = (None if scale == 1 else
-                     ntt_host._device_table(ntt_host._constant_table(n2, scale), y))
+            table = None if scale == 1 else ntt_host._constant_table_on(n2, scale, y.device)
             s = n2 // 2
             while s >= nk.tail_size(n2):
                 stw = nk._stage_tw(n2, s, inverse, "cuda")
@@ -1858,6 +1868,73 @@ def phase_mesh(rng, prover, smi: str) -> dict:
                                          f"{KERNELS[key][0]} was not launched")
         runs[label] = {"wall_s": wall, "reports": reports}
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the component suites, ntt_micro, the JS fixture export
+# ---------------------------------------------------------------------------
+
+COMPONENTS_MAX_LOG2 = 20  # BC_MAX_LOG2 of (a): 2^22 runs through the tool alone
+COMPONENTS_CONFIGS = ["pairs_1024", "pairs_65536", "pairs_1048576", "bulk_insert_2e20",
+                      "g1_2e16_b4", "g1_2e18_b4", "g1_2e20_b4", "fft_2e20", "ifft_2e20"]
+
+
+def phase_components(smi: str) -> dict:
+    """Phase 13, the counters at 0 before (a) and read after (c): (a)
+    tools/bench_components at BC_MAX_LOG2 = 20, every suite's config
+    checked exactly against its native host oracle; (b) tools/ntt_micro at
+    n = 8192, B = 64, every variant's kernel call (K1, the K4 stages at
+    m = 1, 8, 64, 512 and n/2, the K5 tail) bit for bit against its plain
+    version on the same tensors, timed L2-cold beside its bound, then K4
+    at m = 2^16 and 2^19 of n = 2^20 likewise; (c)
+    tools/export_js_fixture: the depth-10 fixture proved on the card
+    (W1 evaluates its witness), byte for byte equal to the tracked file."""
+    from zerokit_tpu_torch.ff import ntt_kernels as nk
+    from zerokit_tpu_torch.runtime.profiling import launch_counts, reset_launches
+    from zerokit_tpu_torch.tools import bench_components, export_js_fixture, ntt_micro
+
+    t0 = time.perf_counter()
+    reset_launches()
+    log(f"  (a) bench_components, every suite at BC_MAX_LOG2 = {COMPONENTS_MAX_LOG2}")
+    bench, failed = bench_components.run(list(bench_components.SUITES), "cuda",
+                                         limit=COMPONENTS_MAX_LOG2)
+    configs = [line["config"] for line in bench.lines]
+    if failed or configs != COMPONENTS_CONFIGS:
+        raise AssertionError(f"bench_components: suites {failed} failed; configs {configs}")
+    for line in bench.lines:
+        log(f"    {line['suite']} {line['config']}: {line['value']:.1f} {line['unit']}, "
+            f"device {line['device_ms']:.4f} ms, bound {line['bound_ms']:.4f} ms "
+            f"({line['bound_ms'] / line['device_ms']:.1%}), cold {line['cold_sec']:.1f} s, "
+            f"checked {line['checked']}; {smi}")
+    t_a = time.perf_counter()
+    log("  (b) ntt_micro, n = 8192, B = 64: each kernel call against its plain version")
+    micro = ntt_micro.run(log=lambda msg: log(f"    {msg}"))
+    names = [row["name"] for row in micro]
+    missing = [f"stage m={m}" for m in ntt_micro.STAGE_MS if f"stage m={m}" not in names]
+    bad = [row["name"] for row in micro if row["max_abs_err"] != 0]
+    if missing or bad:
+        raise AssertionError(f"ntt_micro: variants {missing} missing, {bad} disagree with "
+                             f"their plain versions")
+    # K4 at stages of the 2^20 fft beyond ntt_micro's n/2 = 4096, on an
+    # input that repeats nowhere
+    n_big = 1 << COMPONENTS_MAX_LOG2
+    x = ntt_micro.make_input(n_big, 1, "cuda", seed=1)
+    for m in (1 << 16, n_big // 2):
+        tw = nk._stage_tw(n_big, m, False, str(x.device))
+        err = max_abs_err(nk.ntt_stage(x, tw, m, "dif"), nk.ntt_stage_plain(x, tw, m, "dif"))
+        log(f"    K4 ntt_stage dif m={m}, (16, 1, {n_big}): max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"K4 at m={m}, n={n_big} disagrees with its plain version")
+    del x
+    t_b = time.perf_counter()
+    log("  (c) export_js_fixture --compare, the depth-10 proof on the card")
+    if export_js_fixture.main(["--device", "cuda", "--compare"]) != 0:
+        raise AssertionError("the exported fixture differs from the tracked file")
+    counts = launch_counts()
+    t_c = time.perf_counter()
+    log(f"  phase 13: (a) {t_a - t0:.1f} s, (b) {t_b - t_a:.1f} s, (c) {t_c - t_b:.1f} s; "
+        f"launches {counts}")
+    return {"counts": counts, "lines": bench.lines, "micro": micro}
 
 
 def kernel_template(key: str, shape: dict):
@@ -1967,6 +2044,9 @@ TREE_PATH = DEPTH20_PATH + ("P1",)
 # phase 11's serving surface proves through prove_batch; its host trees
 # rehash natively, so P1 is counted but not required there
 SERVING_PATH = DEPTH20_PATH
+# phase 13: the suites (K1-K5, P1), ntt_micro (K1, K4, K5) and the
+# fixture's depth-10 proof (W1 among the proving path's kernels)
+COMPONENTS_PATH = DEPTH20_PATH + ("P1",)
 
 
 def main() -> int:
@@ -2117,6 +2197,14 @@ def main() -> int:
     phase_mesh_kernels(rng, checks, prover)
     phase_mesh(rng, prover, smi)
 
+    # 13. the component suites, ntt_micro, the JS fixture ---------------------
+    log("[13] the component suites at BASELINE sizes (BC_MAX_LOG2 = 20), ntt_micro, the JS "
+        "fixture export")
+    components = phase_components(smi)
+    for key in COMPONENTS_PATH:
+        if components["counts"][KERNELS[key][3]] <= 0:
+            raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by phase 13")
+
     kernels = []
     for key, (kname, src, replaces, counter) in KERNELS.items():
         ms, plain_ms, what, shape = checks.times[key]
@@ -2132,6 +2220,7 @@ def main() -> int:
             "source": f"zerokit_tpu_torch/csrc/{src}", "replaces": replaces,
             "launches": main_counts[counter], "launches_multi": multi_counts[counter],
             "launches_warm": warm_by_key[key], "launches_serving": serving["counts"][counter],
+            "launches_components": components["counts"][counter],
             "max_abs_err": max(checks.errors[key]), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes" if res == "hbm" else "operations",
             "library_ms": None,

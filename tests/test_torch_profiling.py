@@ -23,6 +23,7 @@ from zerokit_tpu_torch.constants import R
 from zerokit_tpu_torch.ff import field as tfield
 from zerokit_tpu_torch.ff.field import FrField, encode_canonical_fast
 from zerokit_tpu_torch.ff.fq2 import FqAdapter
+from zerokit_tpu_torch.groth16 import msm as msm_mod
 from zerokit_tpu_torch.groth16.msm import MSM
 from zerokit_tpu_torch.groth16.prover import Groth16Prover
 from zerokit_tpu_torch.groth16.qap import SparseMatrix, WitnessMapper
@@ -104,6 +105,20 @@ def test_kernel_work_hand_computed():
     assert prof.kernel_work("K4", rows=48, n=8192, m=4096) == (
         48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
     assert prof.kernel_work("K6", lanes=1 << 17) == ((1 << 17) * 128, 3 * 64 * (1 << 17) + 3072)
+    # a squaring reads its one input once
+    assert prof.kernel_work("K1", lanes=8, square=True) == (8 * 264, 2 * 64 * 8)
+    # the G1 MSM of bench_components, a lane: each window's 1024 mixed adds
+    # (11 products), 2 * 255 bucket-reduction adds (12) and 8 doublings (8),
+    # then 31 adds joining the 32 windows; the scalars, the 32 windows'
+    # affine rows and the projective results
+    assert prof.kernel_work("MSM", n=1024, lanes=4) == (
+        4 * (32 * (1024 * 11 + 510 * 12 + 8 * 8) + 31 * 12) * 264,
+        (1024 * 4 + 32 * 1024 * 2 + 3 * 4) * 64)
+    assert (prof.N_MSM_WINDOWS, prof.MSM_C_BITS) == (msm_mod.N_WINDOWS, msm_mod.C_BITS)
+    # fft at n = 8: 12 butterflies, 7 of them by a twiddle of 1; ifft's
+    # scale adds 8 products and its table
+    assert prof.kernel_work("NTT", rows=2, n=8) == (2 * 5 * 264, (2 * 2 * 8 + 7) * 64)
+    assert prof.kernel_work("NTT", rows=1, n=8, scale=True) == (13 * 264, (2 * 8 + 7 + 8) * 64)
     assert prof.tensor_ops("K6", lanes=4) == 4 * 2 * 32 * 96
     assert prof.tensor_ops("K1", lanes=4) == 0
     with pytest.raises(ValueError):
@@ -535,3 +550,15 @@ def test_random_batch_inputs_are_seeded_rln_inputs():
     assert named["userMessageLimit"] == [[100] * 3] and named["messageId"] == [[1] * 3]
     assert all(0 <= v < R for v in rs + ss)
     assert all(v in (0, 1) for slot in named["identityPathIndex"] for v in slot)
+
+
+def test_l2_cold_fills_its_rotation_before_it_returns(monkeypatch):
+    # 16 B of inputs against a 64 B rotation: 4 copies, each called once
+    # (its output allocated) before the caller times anything
+    monkeypatch.setattr(prof, "L2_ROTATION_BYTES", 64)
+    calls = []
+    x = torch.arange(4, dtype=torch.int32)
+    cold = prof.l2_cold(lambda t: calls.append(t.data_ptr()) or t + 1, x)
+    assert len(calls) == 4 and len(set(calls)) == 4 and x.data_ptr() not in calls
+    assert torch.equal(cold(), x + 1)
+    assert calls[4] == calls[0]  # the fifth call reads the first copy again

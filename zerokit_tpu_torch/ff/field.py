@@ -43,6 +43,11 @@ def int_to_limbs(x: int, n: int = NUM_LIMBS) -> np.ndarray:
     return np.array([(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(n)], dtype=np.uint32)
 
 
+def limbs_to_int(limbs) -> int:
+    arr = np.asarray(limbs)
+    return sum(int(arr[i]) << (LIMB_BITS * i) for i in range(arr.shape[0]))
+
+
 def resolve_device(device) -> torch.device:
     """The entry points' device: the card unless the caller names another.
     Raises when a CUDA device is asked for and none is present."""
@@ -101,6 +106,7 @@ class FieldSpec:
         self.name = name
         self.r_mod = MONT_R % p
         self.r2_mod = (MONT_R * MONT_R) % p
+        self.r_inv = pow(MONT_R, -1, p)
         self.ninv = (-pow(p, -1, MONT_R)) % MONT_R
         self.p_limbs = int_to_limbs(p)
         self.ninv_limbs = int_to_limbs(self.ninv)
@@ -111,7 +117,7 @@ class FieldSpec:
         return (x * MONT_R) % self.p
 
     def from_mont_int(self, x: int) -> int:
-        return (x * pow(MONT_R, -1, self.p)) % self.p
+        return (x * self.r_inv) % self.p
 
     def encode(self, xs, mont: bool = True) -> torch.Tensor:
         """Python ints -> limb tensor (16, *np.shape(xs)) int32 (CPU)."""

@@ -34,8 +34,16 @@ N_WINDOWS = 32  # 256 bits / 8
 # Window-group size bound: a pass keeps the int32 table-row index
 # (4 * G * n * B bytes) and the fine prefix rows (192 * C * G * n * B bytes)
 # resident; the fine scan reads the table rows through the index, so no
-# gathered copy of them exists. C*G*B is capped.
+# gathered copy of them exists. C*G*B is capped, and so are the fine rows'
+# bytes: MAX_FINE_BYTES binds only past the proving path's widths (at most
+# 1.2 GB there: b2, 6144 points x 16 lanes x 32 windows), and keeps a
+# 2^22-point G1 pass of 4 lanes at 2 windows a group (6.4 GB), not 32 (103 GB).
 MAX_CGB = 1024
+MAX_FINE_BYTES = 8 << 30
+FINE_ROW_BYTES = 192  # one projective prefix row a component: 16 limbs x 3 coords x 4 B
+# points whose window tables one build step holds at once: bounds the
+# projective columns and to_affine's product tree of a large table build
+TABLE_CHUNK = 1 << 20
 K_BLOCK = 32  # intra-block scan length
 PAD_GRANULARITY = 2048
 # lanes per MSM pass; wider batches stream through passes of this width
@@ -84,9 +92,26 @@ def build_window_tables(
     return cv.to_affine(torch.stack(cols, dim=3))
 
 
-def _window_group(batch: int, components: int, n_windows: int = N_WINDOWS) -> int:
+def table_rows(cv: CurveOps, points: torch.Tensor, n: int, n_windows: int = N_WINDOWS,
+               c_bits: int = C_BITS) -> torch.Tensor:
+    """points (16, C, 2, n_real) affine -> the AoS window-table rows
+    (W*n, 16*C*2) of build_window_tables, row w*n + i for point i; the rows
+    of points n_real..n (infinity padding) are (0, 0) and cost no
+    doublings. Built TABLE_CHUNK points at a time."""
+    n_real = points.shape[3]
+    rows = points.new_zeros((n_windows, n, NUM_LIMBS * cv.components * 2))
+    for lo in range(0, n_real, TABLE_CHUNK):
+        t = build_window_tables(cv, points[..., lo : lo + TABLE_CHUNK], n_windows, c_bits)
+        rows[:, lo : lo + t.shape[4]] = tables_to_aos_s(cv.fq, t[None]).view(
+            n_windows, t.shape[4], -1)
+    return rows.view(n_windows * n, -1)
+
+
+def _window_group(batch: int, components: int, n: int, n_windows: int = N_WINDOWS) -> int:
+    """Windows a pass of `batch` lanes over n points sorts and scans at once."""
     g = min(32, n_windows)
-    while g > 2 and g * batch * components > MAX_CGB:
+    while g > 2 and (g * batch * components > MAX_CGB
+                     or FINE_ROW_BYTES * components * g * n * batch > MAX_FINE_BYTES):
         g //= 2
     return g
 
@@ -136,6 +161,21 @@ def affine_ints(adapter, acc: torch.Tensor) -> List:
     return out
 
 
+def msm_accumulate(adapter, points: torch.Tensor, scalars: torch.Tensor,
+                   n_windows: int = N_WINDOWS, c_bits: int = C_BITS) -> torch.Tensor:
+    """One-shot MSM from affine points (16, C, 2, n) + canonical scalars
+    (16, n, B); tables built on the fly. Returns projective accumulators
+    (16, C, 3, B). For repeated MSMs over the same bases use the MSM class,
+    which caches the window tables. (n_windows, c_bits) below the default
+    requires every scalar < 2^(c_bits*n_windows)."""
+    cv = CurveOps(adapter)
+    n = points.shape[3]
+    rows = table_rows(cv, points, n, n_windows, c_bits)
+    group = _window_group(scalars.shape[2], adapter.components, n, n_windows)
+    return fused_msm_pass(cv, rows, scalars.contiguous(), n, n_windows, c_bits, group,
+                          block_size_for(n))
+
+
 class MSM:
     """MSM over one fixed base set. adapter = ff.fq2.FqAdapter (G1) or Fq2Adapter (G2)."""
 
@@ -166,12 +206,8 @@ class MSM:
         when threads reach the first use together."""
         with self._tables_lock:
             if self._tables is None:
-                # the padding points are infinity, whose tables are (0, 0)
-                # rows: only the real points go through the doublings
-                real = self.points[..., : self.n_real]
-                t = build_window_tables(self.curve, real, self.n_windows, self.c_bits)
-                t = torch.nn.functional.pad(t, (0, self.n - self.n_real))
-                self._tables = tables_to_aos_s(self.adapter, t[None])[0].contiguous()
+                self._tables = table_rows(self.curve, self.points[..., : self.n_real], self.n,
+                                          self.n_windows, self.c_bits)
         return self._tables
 
     def scalars_padded(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
@@ -189,7 +225,8 @@ class MSM:
 
     def _pass(self, scalars: torch.Tensor, n_instances: int = 1,
               tables: Optional[torch.Tensor] = None) -> torch.Tensor:
-        group = _window_group(scalars.shape[2], self.adapter.components, self.n_windows)
+        group = _window_group(scalars.shape[2], self.adapter.components, self.n,
+                              self.n_windows)
         return fused_msm_pass(
             self.curve, self.tables() if tables is None else tables, scalars, self.n,
             self.n_windows, self.c_bits, group, block_size_for(self.n), n_instances,

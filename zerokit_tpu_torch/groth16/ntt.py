@@ -51,10 +51,11 @@ def domain_generator(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _bitrev(n: int) -> np.ndarray:
     log_n = n.bit_length() - 1
-    rev = np.zeros(n, dtype=np.int32)
-    for i in range(n):
-        rev[i] = int(f"{i:0{log_n}b}"[::-1], 2) if log_n else 0
-    return rev
+    i = np.arange(n, dtype=np.int64)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(log_n):
+        rev |= ((i >> b) & 1) << (log_n - 1 - b)
+    return rev.astype(np.int32)
 
 
 def _encode_np(vals) -> np.ndarray:
@@ -172,12 +173,23 @@ def power_table(n: int, root: int) -> np.ndarray:
     return _encode_np(powers)
 
 
-def _device_table(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(arr.astype(np.int32)).to(like.device)
+# the tables of natural_ntt and distribute_powers, uploaded once a device
+# (at n = 2^20 a fresh upload of the scale's table took ~40 ms a call),
+# keyed by a tensor's device, whose index is always set
+@functools.lru_cache(maxsize=None)
+def _constant_table_on(n: int, value: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_constant_table(n, value).astype(np.int32)).to(device)
 
 
-def _bitrev_index(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(_bitrev(n).astype(np.int64)).to(like.device)
+@functools.lru_cache(maxsize=None)
+def _power_table_on(n: int, root: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(power_table(n, root).astype(np.int32)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _bitrev_on(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_bitrev(n).astype(np.int64)).to(device)
+
 
 
 def natural_ntt(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Tensor:
@@ -189,9 +201,9 @@ def natural_ntt(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Tensor:
     n = x.shape[2]
     if n == 1:
         return x if scale == 1 else FrField.mul(x, FrField.const(_mont_limbs(scale), x))
-    table = None if scale == 1 else _device_table(_constant_table(n, scale), x)
+    table = None if scale == 1 else _constant_table_on(n, scale, x.device)
     y = ntt_kernels.dif(x.contiguous(), inverse, table)
-    return y.index_select(2, _bitrev_index(n, y))
+    return y.index_select(2, _bitrev_on(n, y.device))
 
 
 def fft(x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +219,7 @@ def ifft(x: torch.Tensor) -> torch.Tensor:
 def distribute_powers(x: torch.Tensor, root: int) -> torch.Tensor:
     """x[..., i] *= root^i on (16, B, n) (ark distribute_powers, const 1)."""
     n = x.shape[2]
-    tw = _device_table(power_table(n, root), x)[:, None, :].expand(x.shape)
+    tw = _power_table_on(n, root, x.device)[:, None, :].expand(x.shape)
     return FrField.mul(x, tw)
 
 
@@ -215,7 +227,7 @@ def natural_ntt_plain(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.T
     """Plain version of natural_ntt, by the other route: the bit-reversal
     gather first, then plain DIT stages, then the product by scale."""
     n = x.shape[2]
-    y = x.transpose(1, 2).index_select(1, _bitrev_index(n, x))
+    y = x.transpose(1, 2).index_select(1, _bitrev_on(n, x.device))
     y = _dit(y, n, inverse).transpose(1, 2)
     if scale != 1:
         y = FrPlain.mul(y, FrPlain.const(_mont_limbs(scale), y))

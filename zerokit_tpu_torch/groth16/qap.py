@@ -34,6 +34,10 @@ from ..runtime.profiling import span
 from . import ntt
 
 
+class QAPError(ValueError):
+    pass
+
+
 class SparseMatrix:
     """Constraint matrix bucketed by padded row density.
 

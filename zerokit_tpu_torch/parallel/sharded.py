@@ -37,8 +37,7 @@ import torch.distributed as dist
 from ..ff.field import resolve_device
 from ..groth16.curve import CurveOps
 from ..groth16.msm import (C_BITS, K_BLOCK, LANE_BATCH, MSM, N_WINDOWS, _pad_lanes,
-                           _window_group, block_size_for, build_window_tables,
-                           encode_affine_points, tables_to_aos_s)
+                           _window_group, block_size_for, encode_affine_points, table_rows)
 from ..groth16.msm_fused import fused_msm_pass, tree_sum
 from ..runtime.profiling import span
 
@@ -239,12 +238,8 @@ class ShardedMSM(MSM):
         with self._tables_lock:
             if self._tables is None:
                 n_mine = min(max(self.n_real - self.lo, 0), self.n_loc)
-                t = self.points.new_zeros(self.points.shape[:3] + (self.n_windows, 0))
-                if n_mine:
-                    t = build_window_tables(self.curve, self.points[..., :n_mine],
-                                            self.n_windows, self.c_bits)
-                t = torch.nn.functional.pad(t, (0, self.n_loc - n_mine))
-                self._tables = tables_to_aos_s(self.adapter, t[None])[0].contiguous()
+                self._tables = table_rows(self.curve, self.points[..., :n_mine], self.n_loc,
+                                          self.n_windows, self.c_bits)
         return self._tables
 
     def _pass(self, scalars: torch.Tensor, n_instances: int = 1,
@@ -252,7 +247,8 @@ class ShardedMSM(MSM):
         """scalars (16, n, B) padded -> the pass over this shard's points,
         combined over tp: (16, C, 3, B) on every tp rank."""
         local = scalars[:, self.lo : self.lo + self.n_loc].contiguous()
-        group = _window_group(scalars.shape[2], self.adapter.components, self.n_windows)
+        group = _window_group(scalars.shape[2], self.adapter.components, self.n_loc,
+                              self.n_windows)
         acc = fused_msm_pass(
             self.curve, self.tables() if tables is None else tables, local, self.n_loc,
             self.n_windows, self.c_bits, group, block_size_for(self.n_loc), n_instances,

@@ -353,4 +353,5 @@ def fr_ntt_native(vals: Sequence[int], inverse: bool = False) -> Optional[List[i
     )
     if rc != 0:
         return None
-    return [int.from_bytes(buf.raw[32 * i : 32 * (i + 1)], "little") for i in range(n)]
+    raw = buf.raw  # one copy: each .raw copies the whole buffer
+    return [int.from_bytes(raw[32 * i : 32 * (i + 1)], "little") for i in range(n)]

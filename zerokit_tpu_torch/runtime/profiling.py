@@ -169,7 +169,9 @@ def l2_cold(call, *inputs):
     hold L2_ROTATION_BYTES together, with the last outputs kept alive so
     that they rotate too: each call reads and writes addresses that the
     calls just before it have pushed out of L2, so a byte-bound kernel
-    reads its time against HBM, not against L2."""
+    reads its time against HBM, not against L2. The rotation is filled
+    (one call a copy) before it is returned, so a timed call allocates
+    nothing: the caching allocator reuses the output that it drops."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs)
     n = max(2, -(-L2_ROTATION_BYTES // nbytes))
     copies = [[t.clone() for t in inputs] for _ in range(n)]
@@ -180,6 +182,8 @@ def l2_cold(call, *inputs):
         held.append(call(*copies[next(step) % n]))
         return held[-1]
 
+    for _ in range(n):
+        cold()
     return cold
 
 
@@ -380,6 +384,22 @@ def msm_mont_muls(n_points: int, n_windows: int = 32) -> int:
     return n_windows * per_window * EC_ADD_MONT_MULS
 
 
+N_MSM_WINDOWS, MSM_C_BITS = 32, 8  # groth16/msm.py's N_WINDOWS and C_BITS
+
+
+def msm_bucket_mont_muls(n_points: int) -> int:
+    """Montgomery products of one lane of a G1 MSM over n affine points by
+    the bucket method over the fixed-base window tables: a window's n
+    mixed adds into its buckets, its bucket reduction (2 * 255 adds: the
+    running sum and the total) and its c doublings, then the W - 1 adds
+    that join the windows."""
+    ops = EC_OP_MONT_MULS
+    buckets = (1 << MSM_C_BITS) - 1
+    per_window = (n_points * ops[(1, "add_mixed")] + 2 * buckets * ops[(1, "add")]
+                  + MSM_C_BITS * ops[(1, "double")])
+    return N_MSM_WINDOWS * per_window + (N_MSM_WINDOWS - 1) * ops[(1, "add")]
+
+
 def proof_cost_mont_muls(
     n_wires: int = 5844, domain: int = 8192, graph_nodes: int = 23414
 ) -> dict:
@@ -481,7 +501,7 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
     each input byte read once and each output byte written once, as stored.
     Shapes, as chip_smoke.py's kernel checks give them:
 
-      K1 lanes                       mont_mul on (16, lanes)
+      K1 lanes[, square]             mont_mul on (16, lanes); square: a * a
       K2 op, comps, lanes[, skipped] ec_op; skipped: add_mixed lanes whose q
                                      is the (0, 0) sentinel (no products)
       K2 op="add_gather", comps, lanes, skipped, rows_read  ec_add_gather:
@@ -531,11 +551,28 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
       P1 t, lanes                    poseidon_perm: poseidon_imads(t) a
                                      lane; t - 1 inputs read and one output
                                      written, 64 B each, a lane
+
+    and two whole functions of tools/bench_components.py:
+
+      MSM n, lanes                   a G1 MSM over n points per lane:
+                                     msm_bucket_mont_muls(n) products a
+                                     lane; the scalars and the affine
+                                     window tables (32 windows of n
+                                     points) read once, the projective
+                                     results written
+      NTT rows, n[, scale]           groth16/ntt.fft on (16, rows, n): the
+                                     n/2 log2(n) butterflies less the n - 1
+                                     whose twiddle is 1, one product each;
+                                     with scale (ifft), n more products; x
+                                     read, the result written, the n - 1
+                                     stage twiddles (and the scale's table)
+                                     read once
     """
     w = WORD
     if key == "K1":
         n = shape["lanes"]
-        return n * MONT_MUL_IMADS, 3 * LIMBS * w * n
+        arrays = 2 if shape.get("square") else 3  # a squaring reads one input
+        return n * MONT_MUL_IMADS, arrays * LIMBS * w * n
     if key == "K2":
         op, comps, n = shape["op"], shape["comps"], shape["lanes"]
         live = n - shape.get("skipped", 0)
@@ -592,6 +629,16 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
     if key == "P1":
         t, lanes = shape["t"], shape["lanes"]
         return lanes * poseidon_imads(t), lanes * t * LIMBS * w
+    if key == "MSM":
+        n, lanes = shape["n"], shape["lanes"]
+        words = LIMBS * (n * lanes + N_MSM_WINDOWS * n * 2 + 3 * lanes)
+        return lanes * msm_bucket_mont_muls(n) * MONT_MUL_IMADS, words * w
+    if key == "NTT":
+        rows, n = shape["rows"], shape["n"]
+        scale = bool(shape.get("scale", False))
+        muls = rows * ((n.bit_length() - 1) * n // 2 - (n - 1) + (n if scale else 0))
+        words = (2 * rows * n + n - 1 + (n if scale else 0)) * LIMBS
+        return muls * MONT_MUL_IMADS, words * w
     raise ValueError(f"unknown kernel {key!r}")
 
 
