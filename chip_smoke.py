@@ -12,10 +12,15 @@ tensors on the card, at the shapes the proving path gives it (K3's fine
 scan through a sorted index made by the pass's own sort, K2's bucket add
 through the rows the pass's own counts give), with both timed on the card;
 the inputs hold edge values of the lazy field core (sums of exactly p,
-(p-1)^2, values just above p - 2^32); the sweeps of K2's block size, the
-fine scan's block size, the coarse scan's threads per lane and K5's chunk
-P (each P's tail calls against the plain version at that P, its
-occupancy, and each P's whole coset lift, equal to P = 512's), (3b) the
+(p-1)^2, values just above p - 2^32); K4 at the witness map's shape as its
+one run each way (ntt_cross against ntt_cross_plain, L2-cold) and as the
+r = 1 call at each cross stage; the sweeps of K2's block size, the fine
+scan's block size, the coarse scan's threads per lane, K4's tile columns C
+and run length r_max (the cross stages of a pass at the witness map's
+shape and at 2^20, each setting equal to the defaults', with its shared
+memory and blocks per SM) and K5's chunk P (each P's tail calls against
+the plain version at that P, its occupancy, and each P's whole coset
+lift, equal to P = 512's), (3b) the
 witness evaluator's kernels W1 (a segment's steps) and W2 (a Div group)
 against their plain versions, bit for bit, segment by segment, on both
 depth-20 graphs at 16 lanes and on a graph holding every op code with edge
@@ -91,8 +96,10 @@ and ifft at 2^20), each config checked exactly against the native host
 library (fft and ifft also on an input that repeats nowhere, against
 their plain versions and fft against the native NTT); (b) tools/ntt_micro
 at n = 8192, B = 64, every kernel call (K4 at m = 1, 8, 64, 512 and n/2
-among them) bit for bit against its plain version, and K4 at m = 2^16 and
-2^19 of n = 2^20 likewise; (c) tools/export_js_fixture --compare, the
+among them) bit for bit against its plain version (its time beside), and
+K4's two runs of the 2^20 fft and its r = 1 call at m = 2^16 and 2^19
+likewise, on an input that repeats nowhere; (c) tools/export_js_fixture
+--compare, the
 depth-10 fixture proved on the card and equal byte for byte to the tracked
 file; K1-K5, P1 and W1 must each launch. Times are CUDA-event times of calls run back
 to back (profiling.device_ms); K1, K4, K5, the coset lift and K6, whose
@@ -481,6 +488,61 @@ def phase_bucket_adds(checks: KernelChecks, shapes: dict, passes: dict,
                                                          cidx, empty, threads)))
 
 
+SWEEP_CROSS_C = (None, 16, 32, 64)  # K4's tile columns (None: the default, ntt_kernels.cross_cols)
+SWEEP_CROSS_RMAX = (3, 4, 5, 6)  # K4's stages a launch at most
+SWEEP_CROSS_LOG2 = (20, 22)  # the fft's sizes beside the main path's, B = 1
+
+
+def phase_cross_sweep(x: torch.Tensor) -> None:
+    """K4's tile columns C and run length r_max: at each setting, the cross
+    stages of one DIF and one DIT pass (ntt_kernels.cross: a launch a run
+    of cross_runs(n, TAIL, r_max)) on x, the main path's (16, 48, 8192), and
+    on the fft's (16, 1, 2^20) and (16, 1, 2^22) inputs that repeat nowhere,
+    each output equal to the defaults' (CROSS_TILE, CROSS_RMAX); timed
+    L2-cold beside the runs' bound, with each run's shared memory and blocks
+    per SM, and ptxas's registers and spills of the kernel."""
+    from zerokit_tpu_torch.ff import _cuda
+    from zerokit_tpu_torch.ff import ntt_kernels as nk
+    from zerokit_tpu_torch.runtime.profiling import ChipSpec, device_ms, kernel_bound, l2_cold
+    from zerokit_tpu_torch.tools.ntt_micro import make_input
+
+    chip = ChipSpec.from_device(torch.cuda.current_device())
+    regs = [f"{kname[kname.index('ntt_cross_kernel'):].split('(')[0]}: {nregs} registers, "
+            f"{st} / {ld} B spill stores / loads"
+            for kname, nregs, _, st, ld in _cuda.ptxas_report(_cuda.build_info.get("log", ""))
+            if "ntt_cross_kernel" in kname]
+    log(f"  K4 sweep of the tile's columns C and the run length r_max (the cross stages of "
+        f"one pass, device_ms over 10 calls, L2-cold; C=default: {nk.CROSS_TILE} positions "
+        f"a tile, ntt_kernels.cross_cols; {chip.label()}): {'; '.join(regs)}")
+    for y in [x] + [make_input(1 << k, 1, "cuda", seed=1) for k in SWEEP_CROSS_LOG2]:
+        _, rows, n = y.shape
+        refs = {d: nk.cross(y, d == "dif", d) for d in ("dif", "dit")}
+        for r_max in SWEEP_CROSS_RMAX:
+            runs = nk.cross_runs(n, nk.TAIL, r_max)
+            bound = 1e3 * sum(kernel_bound("K4", chip, rows=rows, n=n, m=s << (r - 1), r=r)[0]
+                              for s, r in runs)
+            for c in SWEEP_CROSS_C:
+                what = f"(16, {rows}, {n}) C={c or 'default'} r_max={r_max}, runs {runs}"
+                if any(nk.cross_tile(n, r, c) > nk.MAX_CROSS_TILE for _, r in runs):
+                    log(f"    {what}: a tile above {nk.MAX_CROSS_TILE} positions, not run")
+                    continue
+                parts = []
+                for d in ("dif", "dit"):
+                    def call(a, d=d):
+                        return nk.cross(a, d == "dif", d, c=c, r_max=r_max)
+
+                    if not torch.equal(call(y), refs[d]):
+                        raise AssertionError(f"K4 {d} {what} differs from the defaults'")
+                    ms = device_ms(l2_cold(call, y))
+                    parts.append(f"{d} {ms:.4f} ms ({bound / ms:.1%})")
+                shape = [f"{_cuda.occupancy('zk_ntt_cross_occupancy', 1, n, s, r, c or 0)} "
+                         f"blocks/SM of {nk.cross_tile(n, r, c) // 4} threads, "
+                         f"{nk.cross_smem_bytes(n, s, r, c) / 1024:.1f} KB" for s, r in runs]
+                log(f"    {what}: " + ", ".join(parts) + f" of {bound:.4f} ms; "
+                    + "; ".join(shape))
+        del refs, y
+
+
 SWEEP_TAIL = (512, 1024, 2048)  # K5's chunk sizes
 
 
@@ -519,7 +581,7 @@ def phase_tail_sweep(x: torch.Tensor, root: int) -> None:
             raise AssertionError(f"coset_lift_bn P={p} differs from P={SWEEP_TAIL[0]}")
         ms = device_ms(l2_cold(lambda x: nk.coset_lift_bn(x, root, p), x), 3)
         bound = kernel_bound("K4+K5", chip, rows=rows, n=n, p=p)[0] * 1e3
-        cross = 2 * max(0, n.bit_length() - 1 - (min(n, p).bit_length() - 1))
+        cross = 2 * len(nk.cross_runs(n, p))
         log(f"    P={p}: " + "; ".join(parts) + f"; coset_lift_bn {ms:.4f} ms "
             f"({bound / ms:.1%} of {bound:.4f}, {cross} K4 + 2 K5 launches)")
 
@@ -527,8 +589,6 @@ def phase_tail_sweep(x: torch.Tensor, root: int) -> None:
 def phase_kernels(rng, prover) -> KernelChecks:
     from zerokit_tpu_torch.constants import Q, R
     from zerokit_tpu_torch.ff import field_kernels as fk
-    from zerokit_tpu_torch.ff import ntt_kernels as nk
-    from zerokit_tpu_torch.groth16 import ntt as ntt_host
     from zerokit_tpu_torch.runtime.profiling import l2_cold
 
     checks = KernelChecks()
@@ -567,14 +627,37 @@ def phase_kernels(rng, prover) -> KernelChecks:
     phase_bucket_adds(checks, shapes, passes)
     del passes
     # K4 + K5 at the witness map's shape: a/b/c of BATCH lanes -------------
-    n_dom, rows_3b = prover.mapper.domain_size, 3 * BATCH
+    phase_ntt(rng, checks, prover.mapper.domain_size, 3 * BATCH)
+    return checks
+
+
+def phase_ntt(rng, checks: KernelChecks, n_dom: int, rows_3b: int) -> None:
+    """K4 and K5 at the witness map's shape (16, rows_3b, n_dom), each way
+    of the coset lift: K4's runs (cross_runs: one at n = 8192) against
+    ntt_cross_plain, L2-cold, then its r = 1 call (ntt_stage) at each cross
+    stage, K5 with and without the table, the whole lift against the plain
+    one; then the K4 and K5 sweeps."""
+    from zerokit_tpu_torch.constants import R
+    from zerokit_tpu_torch.ff import ntt_kernels as nk
+    from zerokit_tpu_torch.groth16 import ntt as ntt_host
+    from zerokit_tpu_torch.runtime.profiling import l2_cold
+
     root = ntt_host.coset_root_2n(n_dom)
     x = on_card(random_elems(rng, R, rows_3b * n_dom).reshape(16, rows_3b, n_dom))
     for inverse, direction in ((True, "dif"), (False, "dit")):
+        runs = nk.cross_runs(n_dom)
+        for s, r in runs[::-1] if direction == "dif" else runs:
+            top = nk._stage_tw(n_dom, s << (r - 1), inverse, "cuda")
+            checks.run("K4", f"ntt_cross {direction} s={s} r={r}, (16, {rows_3b}, {n_dom})",
+                       lambda: nk.ntt_cross(x, top, s, r, direction),
+                       lambda: nk.ntt_cross_plain(x, top, s, r, direction),
+                       {"rows": rows_3b, "n": n_dom, "m": s << (r - 1), "r": r,
+                        "dif": direction == "dif"},
+                       cold=l2_cold(lambda x: nk.ntt_cross(x, top, s, r, direction), x))
         m = n_dom // 2
         while m >= nk.tail_size(n_dom):
             tw = nk._stage_tw(n_dom, m, inverse, "cuda")
-            checks.run("K4", f"ntt_stage {direction} m={m}, (16, {rows_3b}, {n_dom})",
+            checks.run("K4", f"ntt_stage {direction} m={m} (r = 1), (16, {rows_3b}, {n_dom})",
                        lambda: nk.ntt_stage(x, tw, m, direction),
                        lambda: nk.ntt_stage_plain(x, tw, m, direction),
                        {"rows": rows_3b, "n": n_dom, "m": m, "dif": direction == "dif"},
@@ -595,8 +678,8 @@ def phase_kernels(rng, prover) -> KernelChecks:
                lambda: ntt_host.coset_lift(x.transpose(1, 2), root).transpose(1, 2),
                {"rows": rows_3b, "n": n_dom, "p": nk.TAIL}, reps=3,
                cold=l2_cold(lambda x: nk.coset_lift_bn(x, root), x))
+    phase_cross_sweep(x)
     phase_tail_sweep(x, root)
-    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -1734,7 +1817,7 @@ def phase_mesh_kernels(rng, checks: KernelChecks, prover) -> None:
     the Bailey NTT of the sharded QAP lift (parallel/ntt_sharded.py) on the
     run's a/b/c rows (3 x the dp rank's lanes): the small DFT's and the
     twiddle's K1 products, the row powers' K1 product, the local
-    length-n2 NTT's K4 stages and K5 tail (the inverse with its 1/N
+    length-n2 NTT's K4 runs and K5 tail (the inverse with its 1/N
     table), and natural_ntt whole against natural_ntt_plain; then the
     ShardedMSM pass of the last tp rank's shard (K3 fine and coarse, K2's
     bucket add) and the tp combine's K2 tree (_tree_reduce_points at D = 2
@@ -1777,14 +1860,12 @@ def phase_mesh_kernels(rng, checks: KernelChecks, prover) -> None:
             y = on_card(random_elems(rng, R, rows * n2).reshape(16, rows, n2))
             scale = pow(n, -1, R) if inverse else 1
             table = None if scale == 1 else ntt_host._constant_table_on(n2, scale, y.device)
-            s = n2 // 2
-            while s >= nk.tail_size(n2):
-                stw = nk._stage_tw(n2, s, inverse, "cuda")
-                checks.run("K4", f"ntt_stage dif {way} m={s}, (16, {rows}, {n2})",
-                           lambda: nk.ntt_stage(y, stw, s, "dif"),
-                           lambda: nk.ntt_stage_plain(y, stw, s, "dif"),
-                           {"rows": rows, "n": n2, "m": s, "dif": True})
-                s //= 2
+            for s, r in nk.cross_runs(n2)[::-1]:
+                top = nk._stage_tw(n2, s << (r - 1), inverse, "cuda")
+                checks.run("K4", f"ntt_cross dif {way} s={s} r={r}, (16, {rows}, {n2})",
+                           lambda: nk.ntt_cross(y, top, s, r, "dif"),
+                           lambda: nk.ntt_cross_plain(y, top, s, r, "dif"),
+                           {"rows": rows, "n": n2, "m": s << (r - 1), "r": r, "dif": True})
             ttw = nk._tail_tw(n2, inverse, "cuda")
             fused = "with the 1/N" if table is not None else "without"
             checks.run("K5", f"ntt_tail dif {way} {fused} table, P={nk.TAIL}, (16, {rows}, {n2})",
@@ -1885,8 +1966,9 @@ def phase_components(smi: str) -> dict:
     checked exactly against its native host oracle; (b) tools/ntt_micro at
     n = 8192, B = 64, every variant's kernel call (K1, the K4 stages at
     m = 1, 8, 64, 512 and n/2, the K5 tail) bit for bit against its plain
-    version on the same tensors, timed L2-cold beside its bound, then K4
-    at m = 2^16 and 2^19 of n = 2^20 likewise; (c)
+    version on the same tensors, timed L2-cold beside its bound and its
+    plain version's time, then K4's two runs of the 2^20 fft and its r = 1
+    call at m = 2^16 and 2^19 of n = 2^20 likewise; (c)
     tools/export_js_fixture: the depth-10 fixture proved on the card
     (W1 evaluates its witness), byte for byte equal to the tracked file."""
     from zerokit_tpu_torch.ff import ntt_kernels as nk
@@ -1915,14 +1997,22 @@ def phase_components(smi: str) -> dict:
     if missing or bad:
         raise AssertionError(f"ntt_micro: variants {missing} missing, {bad} disagree with "
                              f"their plain versions")
-    # K4 at stages of the 2^20 fft beyond ntt_micro's n/2 = 4096, on an
-    # input that repeats nowhere
+    # K4 on the 2^20 fft's input that repeats nowhere: both runs of its DIF
+    # pass, then the r = 1 call at stages beyond ntt_micro's n/2 = 4096
     n_big = 1 << COMPONENTS_MAX_LOG2
     x = ntt_micro.make_input(n_big, 1, "cuda", seed=1)
+    for s, r in nk.cross_runs(n_big)[::-1]:
+        top = nk._stage_tw(n_big, s << (r - 1), False, str(x.device))
+        err = max_abs_err(nk.ntt_cross(x, top, s, r, "dif"),
+                          nk.ntt_cross_plain(x, top, s, r, "dif"))
+        log(f"    K4 ntt_cross dif s={s} r={r}, (16, 1, {n_big}): max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"K4's run s={s} r={r}, n={n_big} disagrees with its plain "
+                                 f"version")
     for m in (1 << 16, n_big // 2):
         tw = nk._stage_tw(n_big, m, False, str(x.device))
         err = max_abs_err(nk.ntt_stage(x, tw, m, "dif"), nk.ntt_stage_plain(x, tw, m, "dif"))
-        log(f"    K4 ntt_stage dif m={m}, (16, 1, {n_big}): max_abs_err {err}")
+        log(f"    K4 ntt_stage dif m={m} (r = 1), (16, 1, {n_big}): max_abs_err {err}")
         if err != 0:
             raise AssertionError(f"K4 at m={m}, n={n_big} disagrees with its plain version")
     del x
@@ -1953,7 +2043,7 @@ def kernel_template(key: str, shape: dict):
     if key == "K3 coarse":
         return f"ec_scan_excl_kernel<{elem}>("
     if key == "K4":
-        return f"ntt_stage_kernel<{int(shape['dif'])}>("
+        return f"ntt_cross_kernel<{int(shape['dif'])}>("
     if key == "K5":
         return f"ntt_tail_kernel<{int(shape['dif'])}, {int(shape['table'])}>("
     if key == "K6":
@@ -2025,7 +2115,7 @@ KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
                 "ec_scan_gather"),
     "K3 coarse": ("ec_scan_excl", "ec_scan.cu", "zerokit_tpu/ff/pallas_field.py:789",
                   "ec_scan_excl"),
-    "K4": ("ntt_stage", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:201", "ntt_stage"),
+    "K4": ("ntt_cross", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:202", "ntt_cross"),
     "K5": ("ntt_tail", "ntt_kernels.cu", "zerokit_tpu/ff/pallas_ntt.py:245", "ntt_tail"),
     "K6": ("mont_mul_tc", "mont_tc.cu", "tools/mxu_mont_prototype.py:131", "mont_mul_tc"),
     # new kernels: the JAX package's evaluator is a lax.scan, not Pallas

@@ -276,7 +276,7 @@ def test_coset_lift_bn_matches_jax(p, n, batch):
     t = from_numpy_limbs(evals, "cpu")
     nk.reset_launches()
     got = nk.coset_lift_bn(t.transpose(1, 2).contiguous(), root, p)
-    assert nk.launches == {"ntt_stage": 0, "ntt_tail": 0}
+    assert nk.launches == {"ntt_cross": 0, "ntt_tail": 0}
     assert np.array_equal(to_numpy_limbs(got.transpose(1, 2)), want)
 
 

@@ -104,6 +104,13 @@ def test_kernel_work_hand_computed():
         192 * 512 * 42 * 264, 192 * 512 * 192 * 4)
     assert prof.kernel_work("K4", rows=48, n=8192, m=4096) == (
         48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
+    # a run of r stages: r products a butterfly, x in and out once, the one
+    # top table (m = s * 2^(r-1)): the main path's run s = 1024, r = 3, and
+    # the 2^20 fft's upper run s = 2^15, r = 5
+    assert prof.kernel_work("K4", rows=48, n=8192, m=4096, r=3) == (
+        3 * 48 * 4096 * 264, (2 * 48 * 8192 + 4096) * 64)
+    assert prof.kernel_work("K4", rows=1, n=1 << 20, m=1 << 19, r=5) == (
+        5 * (1 << 19) * 264, (2 * (1 << 20) + (1 << 19)) * 64)
     assert prof.kernel_work("K6", lanes=1 << 17) == ((1 << 17) * 128, 3 * 64 * (1 << 17) + 3072)
     # a squaring reads its one input once
     assert prof.kernel_work("K1", lanes=8, square=True) == (8 * 264, 2 * 64 * 8)
@@ -337,7 +344,7 @@ def test_launch_counters_cover_every_wrapper():
     prof.reset_launches()
     counts = prof.launch_counts()
     assert set(counts) == {"mont_mul", "ec_op", "ec_add_gather", "ec_scan_gather",
-                           "ec_scan_excl", "ntt_stage", "ntt_tail", "witness_steps",
+                           "ec_scan_excl", "ntt_cross", "ntt_tail", "witness_steps",
                            "witness_div", "poseidon", "mont_mul_tc", "chain", "latency",
                            "roundtrip"}
     assert all(v == 0 for v in counts.values())

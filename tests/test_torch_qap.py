@@ -67,7 +67,7 @@ def test_coset_lift_bn_matches_plain_lift(n, batch):
     want = ntt.coset_lift(evals, root)
     nk.reset_launches()
     got = nk.coset_lift_bn(evals.transpose(1, 2).contiguous(), root)
-    assert nk.launches == {"ntt_stage": 0, "ntt_tail": 0}
+    assert nk.launches == {"ntt_cross": 0, "ntt_tail": 0}
     assert torch.equal(got.transpose(1, 2), want)
 
 

@@ -56,7 +56,8 @@ _SIGNATURES = {
     "zk_ec_add_gather": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _P),
     "zk_ec_scan_gather": (_I, _P, _P, _P, _I, _LL, _LL, _I, _P),
     "zk_ec_scan_excl": (_I, _P, _P, _I, _I, _LL, _LL, _LL, _LL, _P),
-    "zk_ntt_stage": (_I, _P, _P, _P, _LL, _LL, _LL, _P),
+    "zk_ntt_cross": (_I, _P, _P, _P, _LL, _LL, _LL, _I, _I, _P),
+    "zk_ntt_cross_occupancy": (_I, _LL, _LL, _I, _I, _PI),
     "zk_ntt_tail": (_I, _P, _P, _P, _P, _LL, _LL, _LL, _P),
     "zk_ntt_tail_occupancy": (_I, _I, _LL, _PI),
     "zk_mont_mul_tc": (_P, _P, _P, _P, _P, _LL, _P),

@@ -4,28 +4,35 @@ Counterpart of zerokit_tpu/ff/pallas_ntt.py on the same (16, B, n) layout
 (batch second-minor, domain minor) and with the same stage order, so the
 results equal groth16/ntt.py's:
 
-  * ntt_stage (K4, csrc/ntt_kernels.cu `ntt_stage<Dir>`): one radix-2 stage
-    at half-size m. DIF (lo+hi, (lo-hi)*w); DIT (lo+w*hi, lo-w*hi).
+  * ntt_cross (K4, csrc/ntt_kernels.cu `ntt_cross<Dir>`): a run of r
+    consecutive radix-2 stages, half-sizes s .. s * 2^(r-1), in one launch
+    (DIT ascending, DIF descending), on tiles of c columns held in shared
+    memory; its twiddles are the top stage's (16, s * 2^(r-1)) table, read
+    at a stride for the lower stages. DIF (lo+hi, (lo-hi)*w); DIT
+    (lo+w*hi, lo-w*hi). ntt_stage is its r = 1 call.
   * ntt_tail (K5, `ntt_tail<Dir,FuseTable>`): every stage m < P inside
     P-point chunks, P = min(n, p) for a chunk p of 2 .. 2048 (TAIL by
     default), optionally fused with a pointwise table multiply after the DIF
     stages or before the DIT stages.
   * dif / dit / coset_lift_bn: the full passes built from them: the stages
-    m >= P run as K4, the rest in one K5 call.
+    m >= P as the K4 runs of cross_runs (at most CROSS_RMAX stages a launch),
+    the rest in one K5 call.
 
-The chunk is an argument of every wrapper so that tests and chip_smoke.py
-can run each chunk size; the proving path uses TAIL.
+The chunk, the tile's columns and the run length are arguments of the
+wrappers so that tests and chip_smoke.py can run each setting; the proving
+path uses the defaults (TAIL; CROSS_TILE and CROSS_RMAX, csrc's kCrossTile
+and kCrossRMax).
 
-Every power-of-two n and every B are taken. A CUDA tensor launches the
-kernels (or raises); a CPU tensor takes the `*_plain` versions, which run
-on any device and launch no kernel. `launches` counts kernel launches per
-wrapper.
+Every power-of-two n and every B are taken (K4 on the card: n >= 4). A CUDA
+tensor launches the kernels (or raises); a CPU tensor takes the `*_plain`
+versions, which run on any device and launch no kernel. `launches` counts
+kernel launches per wrapper.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +46,13 @@ L = NUM_LIMBS
 TAIL = 1024  # the tail's chunk: the fastest lift of 512, 1024, 2048 on the H100 (PERF.md)
 MAX_TAIL = 2048  # the largest chunk the tail kernel takes (csrc kMaxTail)
 TAIL_LR = 2  # log2 of the values a tail thread holds (csrc kLR: radix-4 groups)
-launches = {"ntt_stage": 0, "ntt_tail": 0}
+CROSS_TILE = 512  # K4's positions a tile (csrc kCrossTile): the sweep's choice on the H100 (PERF.md)
+CROSS_RMAX = 5  # K4's stages a launch at most (csrc kCrossRMax): likewise
+MIN_CROSS_C = 16  # the fewest columns of a default K4 tile (csrc kMinCrossC)
+MAX_CROSS_C = 64  # the most columns a tile K4 takes (csrc kMaxCrossC)
+MAX_CROSS_RUN = 6  # the most stages a K4 launch takes (csrc kMaxRun)
+MAX_CROSS_TILE = 2048  # the most positions a K4 tile holds (csrc kMaxCrossTile)
+launches = {"ntt_cross": 0, "ntt_tail": 0}
 
 
 def reset_launches() -> None:
@@ -88,26 +101,108 @@ def _check_x(x: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K4: one cross stage
+# K4: a run of cross stages
 # ---------------------------------------------------------------------------
 
 
+def cross_runs(n: int, p: int = TAIL, r_max: int = CROSS_RMAX) -> List[Tuple[int, int]]:
+    """The K4 launches of a pass over n points with tail chunk p: (s, r)
+    for each run of r consecutive stages of half-sizes s .. s * 2^(r-1),
+    ascending (DIT order; DIF runs them in reverse). The log2(n / P) cross
+    stages (P = tail_size(n, p)) go into the fewest runs of at most r_max
+    stages, their lengths as near equal as can be, the longer ones first."""
+    if not 1 <= r_max <= MAX_CROSS_RUN:
+        raise ValueError(f"run length must be in [1, {MAX_CROSS_RUN}], got {r_max}")
+    lo = tail_size(n, p).bit_length() - 1
+    stages = n.bit_length() - 1 - lo
+    if stages <= 0:
+        return []
+    count = -(-stages // r_max)
+    runs = []
+    for i in range(count):
+        r = stages // count + (i < stages % count)
+        runs.append((1 << lo, r))
+        lo += r
+    return runs
+
+
+def cross_cols(r: int, c: Optional[int] = None) -> int:
+    """K4's columns a tile for a run of r stages: c, or by default
+    CROSS_TILE / 2^r within [MIN_CROSS_C, MAX_CROSS_C] (csrc
+    default_cols)."""
+    return c if c is not None else min(MAX_CROSS_C, max(MIN_CROSS_C, CROSS_TILE >> r))
+
+
+def cross_tile(n: int, r: int, c: Optional[int] = None) -> int:
+    """Positions of one K4 tile: 2^r columns of min(C, n / 2^r) positions."""
+    return min(cross_cols(r, c), n >> r) << r
+
+
+def cross_smem_bytes(n: int, s: int, r: int, c: Optional[int] = None) -> int:
+    """Shared memory of one K4 block (csrc cross_launch): the tile's 8
+    words a position and the staged twiddles, 2^i min(s, C') for each
+    stage i."""
+    cols = min(cross_cols(r, c), n >> r)
+    low = min(s, cols)
+    return 4 * 8 * ((cols << r) + (low << r) - low)
+
+
+def _check_run(n: int, s: int, r: int, c: Optional[int]) -> None:
+    if not (1 <= r <= MAX_CROSS_RUN and s >= 1 and s & (s - 1) == 0 and s << r <= n):
+        raise ValueError(f"bad run s={s} r={r} for n={n}")
+    if c is not None and (c < 1 or c & (c - 1) or c > MAX_CROSS_C):
+        raise ValueError(f"tile columns must be a power of two in [1, {MAX_CROSS_C}], got {c}")
+
+
+def ntt_cross(x: torch.Tensor, top: torch.Tensor, s: int, r: int, direction: str,
+              c: Optional[int] = None) -> torch.Tensor:
+    """The r stages of half-sizes s .. s * 2^(r-1) on x (16, B, n) in one
+    K4 launch, tiles of c columns (cross_cols); top (16, s * 2^(r-1)): the
+    top stage's twiddles, whose entry j * 2^(r-1-i) is stage s * 2^i's
+    twiddle j."""
+    _check_x(x)
+    _, b, n = x.shape
+    _check_run(n, s, r, c)
+    if direction not in ("dif", "dit"):
+        raise ValueError(f"bad direction {direction!r}")
+    if tuple(top.shape) != (L, s << (r - 1)):
+        raise ValueError(f"twiddles must be (16, {s << (r - 1)}), got {tuple(top.shape)}")
+    if not on_cuda(x, top):
+        return ntt_cross_plain(x, top, s, r, direction)
+    check_limbs(x, "x")
+    check_limbs(top, "top")
+    tile = cross_tile(n, r, c)
+    if n < 4 or tile < 4 or tile > MAX_CROSS_TILE or b > 65535:
+        raise ValueError(f"K4 takes n >= 4, tiles of 4 to {MAX_CROSS_TILE} positions and "
+                         f"B <= 65535: n={n}, r={r}, c={c} (tile {tile}), B={b}")
+    out = torch.empty_like(x)
+    cols = min(cross_cols(r, c), n >> r)
+    if (tile if s < cols else cols) >= 4 and any(t.data_ptr() % 16 for t in (x, out)):
+        raise ValueError("ntt_cross: x must be 16-byte aligned")
+    _cuda.launch("zk_ntt_cross", int(direction == "dif"), x, top, out, b, n, s, r,
+                  0 if c is None else c)
+    launches["ntt_cross"] += 1
+    return out
+
+
+def ntt_cross_plain(x: torch.Tensor, top: torch.Tensor, s: int, r: int,
+                    direction: str) -> torch.Tensor:
+    """The run one stage at a time (ntt_stage_plain), stage s * 2^i's
+    twiddles read from top at stride 2^(r-1-i)."""
+    m_top = s << (r - 1)
+    ms = [s << i for i in range(r)]
+    for m in ms[::-1] if direction == "dif" else ms:
+        x = ntt_stage_plain(x, top[:, :: m_top // m].contiguous(), m, direction)
+    return x
+
+
 def ntt_stage(x: torch.Tensor, tw: torch.Tensor, m: int, direction: str) -> torch.Tensor:
-    """One butterfly stage of half-size m on x (16, B, n); tw (16, m)."""
+    """One butterfly stage of half-size m on x (16, B, n); tw (16, m): the
+    r = 1 call of ntt_cross."""
     _check_x(x)
     if direction not in ("dif", "dit") or m < 1 or 2 * m > x.shape[2]:
         raise ValueError(f"bad stage {direction} m={m} for n={x.shape[2]}")
-    if tuple(tw.shape) != (L, m):
-        raise ValueError(f"twiddles must be (16, {m}), got {tuple(tw.shape)}")
-    if not on_cuda(x, tw):
-        return ntt_stage_plain(x, tw, m, direction)
-    check_limbs(x, "x")
-    check_limbs(tw, "tw")
-    _, b, n = x.shape
-    out = torch.empty_like(x)
-    _cuda.launch("zk_ntt_stage", int(direction == "dif"), x, tw, out, b, n, m)
-    launches["ntt_stage"] += 1
-    return out
+    return ntt_cross(x, tw, m, 1, direction)
 
 
 def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, m: int, direction: str) -> torch.Tensor:
@@ -183,31 +278,33 @@ def ntt_tail_plain(x, tail_tw, table, direction: str, p: int = TAIL) -> torch.Te
 # ---------------------------------------------------------------------------
 
 
+def cross(x: torch.Tensor, inverse: bool, direction: str, p: int = TAIL,
+          c: Optional[int] = None, r_max: int = CROSS_RMAX) -> torch.Tensor:
+    """Every cross stage (m >= P) of a pass on (16, B, n): one K4 launch a
+    run of cross_runs(n, p, r_max), ascending for DIT, descending for DIF;
+    tiles of c columns."""
+    n = x.shape[2]
+    dev = str(x.device)
+    runs = cross_runs(n, p, r_max)
+    for s, r in runs[::-1] if direction == "dif" else runs:
+        x = ntt_cross(x, _stage_tw(n, s << (r - 1), inverse, dev), s, r, direction, c)
+    return x
+
+
 def dif(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None,
         p: int = TAIL) -> torch.Tensor:
     """Full DIF pass on (16, B, n): natural -> bit-reversed order, then an
     optional pointwise multiply by table (16, n); tail chunk p."""
-    n = x.shape[2]
-    dev = str(x.device)
-    m = n // 2
-    while m >= tail_size(n, p):
-        x = ntt_stage(x, _stage_tw(n, m, inverse, dev), m, "dif")
-        m //= 2
-    return ntt_tail(x, _tail_tw(n, inverse, dev, p), table, "dif", p)
+    x = cross(x, inverse, "dif", p)
+    return ntt_tail(x, _tail_tw(x.shape[2], inverse, str(x.device), p), table, "dif", p)
 
 
 def dit(x: torch.Tensor, inverse: bool, table: Optional[torch.Tensor] = None,
         p: int = TAIL) -> torch.Tensor:
     """Full DIT pass on (16, B, n): optional pointwise multiply by table,
     then bit-reversed -> natural order; tail chunk p."""
-    n = x.shape[2]
-    dev = str(x.device)
-    x = ntt_tail(x, _tail_tw(n, inverse, dev, p), table, "dit", p)
-    m = tail_size(n, p)
-    while m <= n // 2:
-        x = ntt_stage(x, _stage_tw(n, m, inverse, dev), m, "dit")
-        m *= 2
-    return x
+    x = ntt_tail(x, _tail_tw(x.shape[2], inverse, str(x.device), p), table, "dit", p)
+    return cross(x, inverse, "dit", p)
 
 
 @functools.lru_cache(maxsize=None)

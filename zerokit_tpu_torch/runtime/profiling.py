@@ -521,7 +521,13 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
                                      the sequential scan's k*lanes adds for
                                      both kinds (the chunked coarse scan's
                                      extra adds are its design's cost).
-      K4 rows, n, m                  ntt_stage on (16, rows, n), twiddles (16, m)
+      K4 rows, n, m[, r]             ntt_cross on (16, rows, n): a run of r
+                                     stages (1: ntt_stage), the top one of
+                                     half-size m; a product a butterfly
+                                     (none is skipped: K4's j = 0
+                                     butterflies have no compile-time
+                                     index); x read and written once, the
+                                     top stage's (16, m) twiddles read once
       K5 rows, n, p[, table]         ntt_tail with chunk P = min(n, p): the
                                      butterflies of its log2(P) stages less
                                      those the kernel skips (tail_skipped:
@@ -596,7 +602,8 @@ def kernel_work(key: str, **shape) -> Tuple[int, int]:
         return imads, words * w * k * n
     if key == "K4":
         rows, n, m = shape["rows"], shape["n"], shape["m"]
-        return rows * n // 2 * MONT_MUL_IMADS, (2 * rows * n + m) * LIMBS * w
+        r = shape.get("r", 1)
+        return rows * n // 2 * r * MONT_MUL_IMADS, (2 * rows * n + m) * LIMBS * w
     if key == "K5":
         rows, n = shape["rows"], shape["n"]
         table = bool(shape.get("table", False))

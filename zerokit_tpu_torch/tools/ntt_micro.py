@@ -8,8 +8,9 @@ variants:
   addsub     FrField.add / sub of adjacent pairs             (no product; torch ops)
   mul5d      K1 on the hi half of the (16, B, n/128, 2, 64) view, by 64 twiddles
              (n/2 of them below n = 128)
-  stage m    K4 (ff/ntt_kernels.ntt_stage), one DIT stage at half-size m, for
-             m = 1, 8, 64, 512 and n/2, on twiddles 5^j as the JAX tool's
+  stage m    K4 (ff/ntt_kernels.ntt_stage: ntt_cross's r = 1 call), one DIT
+             stage at half-size m, for m = 1, 8, 64, 512 and n/2, on
+             twiddles 5^j as the JAX tool's
   tail       K5 (ntt_tail), the DIF stages m < P in P = 1024-point chunks:
              on the card the stages below m = 1024 run there, not in K4
 
@@ -17,8 +18,9 @@ Each variant's kernel call is held against its plain version on the same
 tensors (max_abs_err, integers), then timed L2-cold (runtime/profiling.
 l2_cold: rotating copies of its inputs, the rotation's outputs allocated
 before the timing; the same tensors back to back beside) by device_ms,
-beside its bound (runtime/profiling.kernel_bound; mul_flat's a squaring's,
-one array read; addsub's its bytes) and the share of it.
+beside its plain version's time (one call) and its bound (runtime/
+profiling.kernel_bound; mul_flat's a squaring's, one array read; addsub's
+its bytes) and the share of it.
 
 Run on the card: python -m zerokit_tpu_torch.tools.ntt_micro [n] [B]
 """
@@ -128,14 +130,17 @@ def run(n: int = 8192, batch: int = 64, device="cuda", chip=None, log=print) -> 
     rows = []
     for v in variants(x):
         got, enqueue_s = host_call(lambda: v.kernel(*v.inputs))
-        err = int((got.to(torch.int64) - v.plain(*v.inputs).to(torch.int64)).abs().max())
+        want, plain_s = host_call(lambda: v.plain(*v.inputs))
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         warm = device_ms(lambda: v.kernel(*v.inputs), 10, enqueue_s)
         cold = device_ms(l2_cold(v.kernel, *v.inputs), 10)
+        plain = device_ms(lambda: v.plain(*v.inputs), 1, plain_s)
         bound, res = bound_of(v, chip)
         rows.append({"name": v.name, "max_abs_err": err, "ms": cold, "warm_ms": warm,
-                     "bound_ms": bound, "bound_by": res, "share": bound / cold})
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": res,
+                     "share": bound / cold})
         log(f"{v.name:12s}: {cold:8.4f} ms L2-cold ({warm:.4f} L2-warm), bound {bound:.4f} ms "
-            f"({res}), share {bound / cold:.1%}; max_abs_err {err}")
+            f"({res}), share {bound / cold:.1%}; plain {plain:.2f} ms; max_abs_err {err}")
     return rows
 
 
