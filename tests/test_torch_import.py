@@ -174,6 +174,12 @@ NAMES = {
                                                        "one pass for one or k MSMs"),
     ("parallel/dryrun.py", "run_depth10"): ("parallel/dryrun.py:run_depth", "any depth"),
     ("parallel/dryrun.py", "run_depth10_lite"): ("parallel/dryrun.py:run_depth", "any depth"),
+    ("runtime/profiling.py", "msm_mont_muls"): (None, "the up-sweep + Fenwick MSM model; the "
+                                                "card's MSM is msm_bucket_mont_muls"),
+    ("runtime/profiling.py", "proof_cost_mont_muls"): (None, "built on msm_mont_muls; "
+                                                       "nothing on the card read it"),
+    ("runtime/profiling.py", "speed_of_light"): (None, "a ceiling from proof_cost_mont_muls; "
+                                                 "nothing on the card read it"),
 }
 
 

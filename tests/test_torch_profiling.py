@@ -1,11 +1,11 @@
 """The port's profiling module against the JAX package's, and its new parts.
 
-The cost model (EC_ADD_MONT_MULS, msm_mont_muls, proof_cost_mont_muls) is
-copied and must give the JAX package's numbers; kernel_work / kernel_bound
-are held against hand-computed shapes, busy_share against synthetic
-intervals, and trace() / span() are rehearsed on a CPU-only profile of a
-small witness map and MSM. The entry points default to the card: on a host
-without one they raise unless the caller names the CPU.
+The G1 add's product count (EC_ADD_MONT_MULS) must be the JAX package's;
+kernel_work / kernel_bound are held against hand-computed shapes,
+busy_share against synthetic intervals, and trace() / span() are rehearsed
+on a CPU-only profile of a small witness map and MSM. The entry points
+default to the card: on a host without one they raise unless the caller
+names the CPU.
 """
 
 import inspect
@@ -43,16 +43,6 @@ H100 = prof.ChipSpec(sm_count=132, sm_clock_hz=1.98e9)
 
 def test_cost_model_equals_jax():
     assert prof.EC_ADD_MONT_MULS == jprof.EC_ADD_MONT_MULS
-    for n, w in ((8192, 32), (6144, 32), (2048, 16), (1, 1)):
-        assert prof.msm_mont_muls(n, w) == jprof.msm_mont_muls(n, w)
-    assert prof.proof_cost_mont_muls() == jprof.proof_cost_mont_muls()
-    kw = {"n_wires": 1000, "domain": 2048, "graph_nodes": 5000}
-    assert prof.proof_cost_mont_muls(**kw) == jprof.proof_cost_mont_muls(**kw)
-    sol = prof.speed_of_light(H100)
-    assert sol["mont_muls_per_proof"] == jprof.speed_of_light()["mont_muls_per_proof"]
-    assert sol["imads_per_proof"] == sol["mont_muls_per_proof"] * prof.MONT_MUL_IMADS
-    assert sol["ceiling_proofs_per_sec"] == pytest.approx(
-        H100.imad_per_sec / sol["imads_per_proof"], rel=1e-12)
 
 
 def test_mont_mul_imads_counted_from_the_cios_loop():

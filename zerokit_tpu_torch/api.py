@@ -48,6 +48,7 @@ from .protocol.proof import RLNProof, RLNProofValues, proof_values_from_witness
 from .protocol.slashing import recover_secret
 from .protocol.witness import RLNPartialWitnessInput, RLNWitnessInput
 from .resources import load_resource
+from .runtime.profiling import span
 from .tree.merkle import MerkleProof, OptimalMerkleTree
 
 
@@ -217,26 +218,30 @@ class RLN:
         """Batched prove: the whole batch runs through the device pipeline.
         Pass a runtime.profiling.PipelineMetrics as `metrics` for a per-stage
         timing report."""
-        if not witnesses:
-            return []
-        for w in witnesses:
-            w.validate_against_graph(self.graph)
-        values = [proof_values_from_witness(w) for w in witnesses]
-        if rs is not None and len(rs) != len(witnesses):
-            raise errors.ZerokitError(
-                f"rs has {len(rs)} entries, expected {len(witnesses)}"
-            )
-        if ss is not None and len(ss) != len(witnesses):
-            raise errors.ZerokitError(
-                f"ss has {len(ss)} entries, expected {len(witnesses)}"
-            )
-        if rs is None:
-            rs = self._random_scalars(len(witnesses))
-        if ss is None:
-            ss = self._random_scalars(len(witnesses))
-        named = self._batch_named_inputs(witnesses)
-        proofs = self.prover.prove_batch(named, rs, ss, metrics=metrics)
-        return list(zip(proofs, values))
+        with span("rln.generate_proofs"):
+            if not witnesses:
+                return []
+            with span("facade.validate"):
+                for w in witnesses:
+                    w.validate_against_graph(self.graph)
+            with span("facade.values"):
+                values = [proof_values_from_witness(w) for w in witnesses]
+            if rs is not None and len(rs) != len(witnesses):
+                raise errors.ZerokitError(
+                    f"rs has {len(rs)} entries, expected {len(witnesses)}"
+                )
+            if ss is not None and len(ss) != len(witnesses):
+                raise errors.ZerokitError(
+                    f"ss has {len(ss)} entries, expected {len(witnesses)}"
+                )
+            with span("facade.inputs"):
+                if rs is None:
+                    rs = self._random_scalars(len(witnesses))
+                if ss is None:
+                    ss = self._random_scalars(len(witnesses))
+                named = self._batch_named_inputs(witnesses)
+            proofs = self.prover.prove_batch(named, rs, ss, metrics=metrics)
+            return list(zip(proofs, values))
 
     def generate_proof(
         self,
@@ -271,24 +276,27 @@ class RLN:
                 )
         # same witness-shape validation as the internal path (reference
         # public.rs generate_rln_proof_with_witness validates the inputs too)
-        for w in witnesses:
-            w.validate_against_graph(self.graph)
-        values = [proof_values_from_witness(w) for w in witnesses]
+        with span("facade.validate"):
+            for w in witnesses:
+                w.validate_against_graph(self.graph)
+        with span("facade.values"):
+            values = [proof_values_from_witness(w) for w in witnesses]
         if rs is not None and len(rs) != batch:
             raise errors.ZerokitError(f"rs has {len(rs)} entries, expected {batch}")
         if ss is not None and len(ss) != batch:
             raise errors.ZerokitError(f"ss has {len(ss)} entries, expected {batch}")
-        if rs is None:
-            rs = self._random_scalars(len(witnesses))
-        if ss is None:
-            ss = self._random_scalars(len(witnesses))
-        flat = [
-            calculated_witnesses[b][i] % R
-            for i in range(n_wires)
-            for b in range(batch)
-        ]
-        canon = encode_canonical_fast(flat).reshape(NUM_LIMBS, n_wires, batch)
-        assignment = FrField.to_mont(canon.to(self.device))
+        with span("facade.inputs"):
+            if rs is None:
+                rs = self._random_scalars(len(witnesses))
+            if ss is None:
+                ss = self._random_scalars(len(witnesses))
+            flat = [
+                calculated_witnesses[b][i] % R
+                for i in range(n_wires)
+                for b in range(batch)
+            ]
+            canon = encode_canonical_fast(flat).reshape(NUM_LIMBS, n_wires, batch)
+            assignment = FrField.to_mont(canon.to(self.device))
         proofs = self.prover.prove_batch_with_assignment(assignment, rs, ss)
         return list(zip(proofs, values))
 

@@ -25,6 +25,7 @@ import torch
 from ..constants import NUM_LIMBS, Q
 from ..ff.field import FQ, decode_canonical_fast, resolve_device
 from ..ff.fq2 import FqAdapter
+from ..runtime.profiling import span
 from .curve import CurveOps
 from .msm_fused import fused_msm_pass
 
@@ -131,34 +132,37 @@ def _pad_lanes(x: torch.Tensor, width: int) -> torch.Tensor:
 def affine_ints(adapter, acc: torch.Tensor) -> List:
     """Projective accumulators (16, C, 3, B) of the adapter's curve -> host
     affine points (None for infinity). The few Z inversions run on host
-    integers."""
+    integers. The span host.affine holds the blocking copy to the host, the
+    decode and the inversions (not msm.*: the MSMs' roofline reads the
+    device time inside msm.* ranges)."""
     from ..hostmath import bn254
 
-    arr = acc.detach().cpu()
-    batch = arr.shape[3]
-    vals = [FQ.from_mont_int(v) for v in decode_canonical_fast(arr.reshape(NUM_LIMBS, -1))]
-    out = []
-    for b in range(batch):
-        def coord(c, j):
-            return vals[(c * 3 + j) * batch + b]
+    with span("host.affine"):
+        arr = acc.detach().cpu()
+        batch = arr.shape[3]
+        vals = [FQ.from_mont_int(v) for v in decode_canonical_fast(arr.reshape(NUM_LIMBS, -1))]
+        out = []
+        for b in range(batch):
+            def coord(c, j):
+                return vals[(c * 3 + j) * batch + b]
 
-        if adapter is FqAdapter:
-            x, y, z = coord(0, 0), coord(0, 1), coord(0, 2)
-            if z == 0:
-                out.append(None)
-                continue
-            zi = pow(z, -1, Q)
-            out.append((x * zi % Q, y * zi % Q))
-        else:
-            x = (coord(0, 0), coord(1, 0))
-            y = (coord(0, 1), coord(1, 1))
-            z = (coord(0, 2), coord(1, 2))
-            if z == (0, 0):
-                out.append(None)
-                continue
-            zi = bn254.fq2_inv(z)
-            out.append((bn254.fq2_mul(x, zi), bn254.fq2_mul(y, zi)))
-    return out
+            if adapter is FqAdapter:
+                x, y, z = coord(0, 0), coord(0, 1), coord(0, 2)
+                if z == 0:
+                    out.append(None)
+                    continue
+                zi = pow(z, -1, Q)
+                out.append((x * zi % Q, y * zi % Q))
+            else:
+                x = (coord(0, 0), coord(1, 0))
+                y = (coord(0, 1), coord(1, 1))
+                z = (coord(0, 2), coord(1, 2))
+                if z == (0, 0):
+                    out.append(None)
+                    continue
+                zi = bn254.fq2_inv(z)
+                out.append((bn254.fq2_mul(x, zi), bn254.fq2_mul(y, zi)))
+        return out
 
 
 def msm_accumulate(adapter, points: torch.Tensor, scalars: torch.Tensor,

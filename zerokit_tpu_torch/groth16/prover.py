@@ -49,7 +49,7 @@ from ..constants import NUM_LIMBS, R
 from ..ff.field import FrField, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
 from ..hostmath import bn254
-from ..runtime.profiling import stage_timer
+from ..runtime.profiling import span, stage_timer
 from .msm import LANE_BATCH, MSM, FusedMSMGroup, _pad_lanes
 from .qap import WitnessMapper
 
@@ -172,17 +172,19 @@ class Groth16Prover:
                 parts.append(self.full_assignments(sub, hi - lo))
             return torch.cat(parts, dim=2)
         target = _padded_batch(batch)
-        if target != batch:
-            named_inputs = {
-                name: [list(col) + [col[0]] * (target - batch) for col in cols]
-                for name, cols in named_inputs.items()
-            }
-        buf = self.evaluator.build_input_buffer(named_inputs, target)
+        with span("host.witness_inputs"):
+            if target != batch:
+                named_inputs = {
+                    name: [list(col) + [col[0]] * (target - batch) for col in cols]
+                    for name, cols in named_inputs.items()
+                }
+            buf = self.evaluator.build_input_buffer(named_inputs, target)
         out = self.evaluator.evaluate_mont(buf)
         # scrub the host input buffer (it holds identity-secret limbs): the
         # device's copy of it completed inside evaluate_mont (a blocking
         # copy); reference semantics: iden3calc.rs:44-57 zeroizes it
-        buf.fill(0)
+        with span("host.witness_inputs"):
+            buf.fill(0)
         return out
 
     def _host_assignments(self, named_inputs, batch: int):
@@ -219,10 +221,11 @@ class Groth16Prover:
     ) -> List[Proof]:
         mine = self._my_lanes(len(rs))
         width = mine.stop - mine.start
-        named = {
-            name: [(list(col) + [col[0]] * (mine.stop - len(col)))[mine] for col in cols]
-            for name, cols in named_inputs.items()
-        }
+        with span("prover.pad"):
+            named = {
+                name: [(list(col) + [col[0]] * (mine.stop - len(col)))[mine] for col in cols]
+                for name, cols in named_inputs.items()
+            }
         with self._stage(metrics, "witness_eval"):
             assignment = self.full_assignments(named, width)
         return self._prove_lanes(assignment[:, :, :width], rs, ss, metrics)

@@ -4,19 +4,20 @@ Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
 
   * stage_timer / PipelineMetrics: wall-clock per pipeline stage. A stage
     that ran on the card ends with torch.cuda.synchronize(), so its time
-    includes the device work it queued, not only the enqueue.
+    includes the device work it queued, not only the enqueue. Each stage is
+    also the span "stage.<name>", its closing synchronize inside.
   * device_ms(): the one kernel timer, device time per call of calls run
     back to back; launch_counts() / reset_launches(): every kernel
     wrapper's launch counter.
-  * span(): a torch.profiler range inside a stage (msm.*, qap.*); a no-op
-    when no profiler is running, and never a synchronisation.
+  * span(): the program's one named range, a torch.profiler range on the
+    trace's clock (a call's host phases: rln.*, facade.*, prover.*, host.*;
+    the stages, stage.*; inside them witness.*, qap.*, msm.*, parallel.*);
+    a no-op when no profiler is running, and never a synchronisation.
   * trace() / device_busy_share() / kernel_times(): a torch.profiler capture
     with its chrome trace under build/zerokit_tpu_torch/traces/, the share of
     the traced window in which a device kernel ran, and device time by
     kernel name.
-  * ChipSpec / speed_of_light(): the analytic ceiling of proofs per second
-    from the Montgomery products a proof needs and the card's 32-bit
-    integer multiply rate.
+  * ChipSpec: the card's peak rates.
   * kernel_work() / kernel_bound(): the multiplies and bytes of one call of
     each kernel K1-K6, W1-W2, P1 and the least time the card could take for
     it.
@@ -54,7 +55,7 @@ EC_ADD_MONT_MULS = 12
 # b3 multiply is additions; an Fq2 product is 3 Fq products, an Fq2 square
 # 2, and G2's b3 multiply one Fq2 product.
 EC_OP_MONT_MULS = {
-    (1, "add"): 12, (1, "add_mixed"): 11, (1, "double"): 8,
+    (1, "add"): EC_ADD_MONT_MULS, (1, "add_mixed"): 11, (1, "double"): 8,
     (2, "add"): 12 * 3 + 2 * 3, (2, "add_mixed"): 11 * 3 + 2 * 3,
     (2, "double"): 2 + 3 + (2 + 3) + 5 * 3,
 }
@@ -99,13 +100,7 @@ class PipelineMetrics:
         self.stages[name] = self.stages.get(name, 0.0) + seconds
 
     def report(self) -> dict:
-        total = sum(self.stages.values())
-        return {
-            "batch": self.batch,
-            "total_s": total,
-            "proofs_per_sec": self.batch / total if total else None,
-            "stages": dict(sorted(self.stages.items())),
-        }
+        return {"batch": self.batch, "stages": dict(sorted(self.stages.items()))}
 
     def dumps(self) -> str:
         return json.dumps(self.report())
@@ -113,16 +108,18 @@ class PipelineMetrics:
 
 @contextlib.contextmanager
 def stage_timer(metrics: Optional[PipelineMetrics], name: str, device=None):
-    """Times a stage. With a CUDA `device`, the stage ends with a
-    torch.cuda.synchronize() on it before the clock stops."""
+    """Times a stage, inside the span "stage." + name. With a CUDA
+    `device`, the stage ends with a torch.cuda.synchronize() on it, inside
+    the span, before the clock stops."""
     t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-        if metrics is not None:
-            metrics.record(name, time.perf_counter() - t0)
+    with span("stage." + name):
+        try:
+            yield
+        finally:
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+            if metrics is not None:
+                metrics.record(name, time.perf_counter() - t0)
 
 
 SPIN_CYCLES_PER_SEC = 2.0e9  # at or above the SM clock, so a spin lasts at least as asked
@@ -376,14 +373,6 @@ class ChipSpec:
                    sm_clock_hz=float(clock.split()[0]) * 1e6)
 
 
-def msm_mont_muls(n_points: int, n_windows: int = 32) -> int:
-    """Montgomery multiplies per proof for one G1 MSM under the up-sweep +
-    Fenwick-query formulation: per window ~n tree adds + 14*255 masked
-    prefix-query adds + 255 reduce adds + 8 doublings."""
-    per_window = n_points + 14 * 255 + 2 * 255 + 8
-    return n_windows * per_window * EC_ADD_MONT_MULS
-
-
 N_MSM_WINDOWS, MSM_C_BITS = 32, 8  # groth16/msm.py's N_WINDOWS and C_BITS
 
 
@@ -398,40 +387,6 @@ def msm_bucket_mont_muls(n_points: int) -> int:
     per_window = (n_points * ops[(1, "add_mixed")] + 2 * buckets * ops[(1, "add")]
                   + MSM_C_BITS * ops[(1, "double")])
     return N_MSM_WINDOWS * per_window + (N_MSM_WINDOWS - 1) * ops[(1, "add")]
-
-
-def proof_cost_mont_muls(
-    n_wires: int = 5844, domain: int = 8192, graph_nodes: int = 23414
-) -> dict:
-    """Analytic per-proof cost breakdown (Montgomery multiplies)."""
-    witness = graph_nodes * 2
-    ntt = 9 * domain * (domain.bit_length() - 1) // 2 + 3 * domain
-    msm_g1 = 3 * msm_mont_muls(domain)  # a, b1, l (padded to the domain size)
-    msm_h = msm_mont_muls(domain)
-    msm_g2 = 3 * msm_mont_muls(domain)  # Fq2 ~ 3x Fq muls
-    total = witness + ntt + msm_g1 + msm_h + msm_g2
-    return {
-        "witness": witness,
-        "ntt": ntt,
-        "msm_g1": msm_g1,
-        "msm_h": msm_h,
-        "msm_g2": msm_g2,
-        "total": total,
-    }
-
-
-def speed_of_light(chip: ChipSpec = ChipSpec(), **kwargs) -> dict:
-    """Ceiling proofs/sec of one card if it only did the required 32-bit
-    multiplies of the proof's Montgomery products."""
-    cost = proof_cost_mont_muls(**kwargs)
-    imads = cost["total"] * MONT_MUL_IMADS
-    return {
-        "chip": chip.label(),
-        "mont_muls_per_proof": cost["total"],
-        "imads_per_proof": imads,
-        "ceiling_proofs_per_sec": chip.imad_per_sec / imads,
-        "breakdown": cost,
-    }
 
 
 # ---------------------------------------------------------------------------

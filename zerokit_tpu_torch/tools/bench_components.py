@@ -14,7 +14,7 @@ one JSON line:
 value is the best of 3 timed calls after one warm-up, by the host clock
 ending in torch.cuda.synchronize(); device_ms is one call's card time
 (runtime/profiling.device_ms); bound_ms the least time the card could take
-(runtime/profiling.kernel_bound: msm_mont_muls for the MSM, the
+(runtime/profiling.kernel_bound: msm_bucket_mont_muls for the MSM, the
 butterflies' products or bytes for the NTT, poseidon_imads for P1);
 cold_sec the host preparation (points, encodings, window tables, twiddle
 tables) and the warm-up call, outside the timed region; an MSM line's
