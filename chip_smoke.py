@@ -1362,7 +1362,7 @@ def serve_http(rln, members, smi: str) -> dict:
     from zerokit_tpu_torch.server import ProverHTTPServer, ProverService, make_handler
 
     batches = []  # (batch size, prove_batch host seconds) of each service batch
-    prove_batch = rln.prover.prove_batch
+    prove_batch = rln.prover.prove_batch_public  # what RLN.generate_proofs calls
 
     def timed_prove_batch(named, rs, ss, metrics=None):
         t0 = time.perf_counter()
@@ -1374,7 +1374,7 @@ def serve_http(rln, members, smi: str) -> dict:
     t0 = time.perf_counter()
     svc = ProverService(rln, max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
     warm_s = time.perf_counter() - t0
-    rln.prover.prove_batch = timed_prove_batch  # after the warm-up's batch of one
+    rln.prover.prove_batch_public = timed_prove_batch  # after the warm-up's batch of one
     server = ProverHTTPServer(("127.0.0.1", 0), make_handler(svc))
     serving = threading.Thread(target=server.serve_forever, daemon=True)
     serving.start()
@@ -1486,7 +1486,7 @@ def serve_http(rln, members, smi: str) -> dict:
         server.shutdown()
         server.server_close()
         svc.stop()
-        rln.prover.prove_batch = prove_batch
+        rln.prover.prove_batch_public = prove_batch
     return {"wall_s": wall, "sizes": sizes, "prove_batch_s": [s for _, s in batches]}
 
 

@@ -21,8 +21,10 @@ from zerokit_tpu_torch import (RLN, RLNPartialWitnessInput, RLNWitnessInput, err
                                hash_to_field_le, poseidon_hash, poseidon_hash_pair)
 from zerokit_tpu_torch.circuit import witness_host
 from zerokit_tpu_torch.constants import R
+from zerokit_tpu_torch.groth16.prover import _POINT_KEYS
 from zerokit_tpu_torch.protocol.proof import proof_values_from_witness
 from zerokit_tpu_torch.resources import load_resource
+from zerokit_tpu_torch.runtime.profiling import PipelineMetrics
 
 torch.set_num_threads(1)
 
@@ -160,6 +162,34 @@ def e2e_witnesses(depth: int):
                                              mp.get_path_index(), hash_to_field_le(signal),
                                              ext))
     return ws, tree.root(), secret
+
+
+def test_generate_proofs_reads_the_values_from_the_assignment(rln10, monkeypatch):
+    """generate_proofs takes every lane's values from the public wires of
+    the lane's assignment: equal to the host's values from the witness (of
+    members and of a path that is in no tree), and counted under
+    public_from_assignment, call by call. The witness evaluator and the
+    readout run; the witness map, the MSMs and the assembly are stand-ins
+    (the slow test below and tests/test_torch_prover.py hold the proofs)."""
+    prover = rln10.prover
+    monkeypatch.setattr(prover, "_affine_results",
+                        lambda part, metrics: {k: [None] * part.shape[2] for k in _POINT_KEYS})
+    monkeypatch.setattr(prover, "_assemble_batch", lambda points, rs, ss, metrics: [None] * len(rs))
+    ws, _, _ = e2e_witnesses(rln10.tree_depth())
+    rnd = random.Random(18)
+    ws.append(RLNWitnessInput.new_single(rnd.randrange(R), 7, 6,
+                                         [rnd.randrange(R) for _ in range(rln10.tree_depth())],
+                                         [rnd.randrange(2) for _ in range(rln10.tree_depth())],
+                                         rnd.randrange(R), rnd.randrange(R)))
+    metrics = PipelineMetrics()
+    total = 0
+    for batch in (ws, ws[1:2]):
+        out = rln10.generate_proofs(batch, metrics=metrics)
+        assert [proof for proof, _ in out] == [None] * len(batch)
+        assert [values for _, values in out] == [proof_values_from_witness(w) for w in batch]
+        total += len(batch)
+        assert metrics.counts == {"public_from_assignment": total}
+        assert metrics.report()["counts"] == metrics.counts
 
 
 @pytest.mark.slow

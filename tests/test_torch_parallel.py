@@ -37,6 +37,8 @@ from zerokit_tpu_torch.hostmath import bn254
 from zerokit_tpu_torch.parallel.launch import LaunchError, launch
 from zerokit_tpu_torch.parallel.sharded import (_tree_reduce_points, make_mesh,
                                                 pad_points_for_sharding)
+from zerokit_tpu_torch.protocol.proof import proof_values_from_witness
+from zerokit_tpu_torch.protocol.witness import RLNWitnessInput
 
 torch.set_num_threads(1)
 
@@ -170,6 +172,25 @@ def test_facade_draws_one_set_of_blinding_scalars():
     out = run(4, "facade_scalars", 2, 2, "cpu", zkey, 3)
     assert all(o == out[0] for o in out) and len(set(out[0])) == 3
     assert all(0 <= v < R for v in out[0])
+
+
+def test_facade_values_over_the_mesh():
+    """RLN(mesh=) at (dp, tp) = (2, 2) on the depth-10 circuit: each dp rank
+    reads the public wires of its own lanes, and every rank's
+    generate_proofs values, gathered over dp, equal the host's values of
+    every witness (3 witnesses in a size class of 4: dp rank 1 holds a
+    padding lane). The MSMs and the assembly are stand-ins in the ranks."""
+    rnd = random.Random(18)
+    ws = [RLNWitnessInput.new_single(rnd.randrange(R), 9, i, [rnd.randrange(R) for _ in range(10)],
+                                     [rnd.randrange(2) for _ in range(10)], rnd.randrange(R),
+                                     rnd.randrange(R))
+          for i in range(3)]
+    out = run(4, "facade_values", 2, 2, "cpu", ws)
+    want = [proof_values_from_witness(w) for w in ws]
+    for o in out:
+        assert o["proofs"] == [None] * 3 and o["values"] == want
+        assert o["counts"] == {"public_from_assignment": 3}
+        assert "dp_gather" in o["stages"]
 
 
 def test_mesh_prover_equals_jax():

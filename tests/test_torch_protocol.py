@@ -254,3 +254,23 @@ def test_witness_pipeline_zeroizes_secret_buffers(monkeypatch):
     assert w.identity_secret == 0
     secret.zeroize()
     assert secret.to_int() == 0
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_values_from_public_inverts_public_inputs(multi):
+    """proof_values_from_public after groth16/verifier.rln_public_inputs is
+    the identity (the multi witness has two unused slots), and the other
+    way round on the circuit's public vector; a vector whose length does
+    not fit max_out raises."""
+    from zerokit_tpu_torch.groth16.verifier import rln_public_inputs
+
+    w, _ = witness(PORT, multi=multi)
+    max_out = w.max_out
+    values = t_proof.proof_values_from_witness(w)
+    public = rln_public_inputs(values)
+    assert len(public) == (3 * max_out + 3 if multi else 5)
+    back = t_proof.proof_values_from_public(public, max_out)
+    assert back == values and back.is_single is not multi
+    assert rln_public_inputs(back) == public
+    with pytest.raises(t_errors.ZerokitError):
+        t_proof.proof_values_from_public(public[:-1], max_out)

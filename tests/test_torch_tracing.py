@@ -35,6 +35,8 @@ from test_torch_profiling import _Ev, _Prof
 from zerokit_tpu_torch import RLN, RLNWitnessInput, hash_to_field_le
 from zerokit_tpu_torch.groth16 import prover as prover_mod
 from zerokit_tpu_torch.groth16.msm import MSM
+from zerokit_tpu_torch.groth16.verifier import rln_public_inputs
+from zerokit_tpu_torch.protocol.proof import proof_values_from_witness
 from zerokit_tpu_torch.resources import load_resource
 from zerokit_tpu_torch.runtime import profiling as prof
 
@@ -50,6 +52,7 @@ PARENT = {
     "facade.values": "rln.generate_proofs",
     "facade.inputs": "rln.generate_proofs",
     "prover.pad": "rln.generate_proofs",
+    "host.public": "rln.generate_proofs",
     **{"stage." + s: "rln.generate_proofs" for s in STAGES},
     "host.witness_inputs": "stage.witness_eval",
     "witness.eval": "stage.witness_eval",
@@ -58,7 +61,8 @@ PARENT = {
 }
 AFFINE_STAGES = {"stage.msm_ab1l", "stage.msm_b2", "stage.msm_h"}
 FACADE = {"facade.validate", "facade.values", "facade.inputs"}
-HOST = {"rln.generate_proofs", "prover.pad", "host.witness_inputs", "host.affine"}
+HOST = {"rln.generate_proofs", "prover.pad", "host.witness_inputs", "host.public",
+        "host.affine"}
 # the ranges msm_roofline_pct.batch sums device time inside, and the other
 # ranges the tools sum (profiling.RANGE_PREFIXES)
 MSM_RANGES = {"msm.digits", "msm.sort", "msm.fine", "msm.coarse", "msm.qgather", "msm.sumq"}
@@ -118,6 +122,7 @@ def test_a_call_names_every_host_phase(recorded_call):
     _, _, ranges, metrics = recorded_call
     names = {name for name, *_ in ranges.spans}
     assert set(metrics.stages) == STAGES
+    assert metrics.counts == {"public_from_assignment": 2}
     assert {n for n in names if n.startswith("stage.")} == {"stage." + k for k in metrics.stages}
     assert FACADE | HOST | OTHER_RANGES | MSM_RANGES <= names
     assert {n for n in names if n.startswith("msm.")} == MSM_RANGES
@@ -140,21 +145,27 @@ def test_spans_nest_as_a_call_runs(recorded_call):
     # five affine conversions: a, b1 and l in one stage, then b2 and h
     assert [p for n, p, _, _ in spans if n == "host.affine"] == (
         ["stage.msm_ab1l"] * 3 + ["stage.msm_b2", "stage.msm_h"])
-    # the facade's phases, in order, then the padding, then the stages
+    # the facade's checks and inputs, the padding, the witness, its public
+    # wires read between two stages, the other stages, then the values
+    # built from those wires
     order = [n for n, p, _, _ in spans if p == "rln.generate_proofs"]
-    assert order == ["facade.validate", "facade.values", "facade.inputs", "prover.pad",
-                     "stage.witness_eval", "stage.qap_witness_map", "stage.from_mont",
-                     "stage.msm_ab1l", "stage.msm_b2", "stage.msm_h", "stage.host_assembly"]
+    assert order == ["facade.validate", "facade.inputs", "prover.pad", "stage.witness_eval",
+                     "host.public", "stage.qap_witness_map", "stage.from_mont",
+                     "stage.msm_ab1l", "stage.msm_b2", "stage.msm_h", "stage.host_assembly",
+                     "facade.values"]
 
 
 def test_facade_spans_on_a_cpu_profile(recorded_call, monkeypatch, tmp_path):
     """The facade's ranges as profiling.trace records them, the prover's
     batch left out (its ranges are torch.profiler's record_function too)."""
     rln, ws = recorded_call[:2]
-    monkeypatch.setattr(rln.prover, "prove_batch", lambda named, rs, ss, metrics: [None] * len(rs))
+    values = [proof_values_from_witness(w) for w in ws]
+    publics = [rln_public_inputs(v) for v in values]
+    monkeypatch.setattr(rln.prover, "prove_batch_public",
+                        lambda named, rs, ss, metrics: ([None] * len(rs), publics))
     with prof.trace(str(tmp_path), device="cpu") as p:
         out = rln.generate_proofs(ws)
-    assert [proof for proof, _ in out] == [None, None]
+    assert out == [(None, v) for v in values]
     ev = {}
     for e in p.events():
         if e.name in FACADE | {"rln.generate_proofs"}:
@@ -163,8 +174,8 @@ def test_facade_spans_on_a_cpu_profile(recorded_call, monkeypatch, tmp_path):
     assert set(ev) == FACADE | {"rln.generate_proofs"}
     call = ev["rln.generate_proofs"]
     assert all(call[0] <= ev[n][0] <= ev[n][1] <= call[1] for n in FACADE)
-    assert ev["facade.validate"][1] <= ev["facade.values"][0]
-    assert ev["facade.values"][1] <= ev["facade.inputs"][0]
+    assert ev["facade.validate"][1] <= ev["facade.inputs"][0]
+    assert ev["facade.inputs"][1] <= ev["facade.values"][0]
 
 
 def test_no_profiler_no_range_and_the_same_stages(monkeypatch, tmp_path):
@@ -184,7 +195,8 @@ def test_no_profiler_no_range_and_the_same_stages(monkeypatch, tmp_path):
         with prof.stage_timer(m, "b", "cpu"):
             pass
     assert synced == ["cuda", "cuda"] and set(metrics.stages) == {"a", "b"}
-    assert metrics.report() == {"batch": 0, "stages": dict(sorted(metrics.stages.items()))}
+    assert metrics.report() == {"batch": 0, "stages": dict(sorted(metrics.stages.items())),
+                                "counts": {}}
     with prof.trace(str(tmp_path), device="cpu") as p:
         with prof.stage_timer(metrics, "a", "cuda"):
             pass

@@ -14,14 +14,17 @@ default: the constructors raise without a card; tests pass "cpu"). With
 `mesh=` (a parallel.sharded.Mesh), every rank builds the same RLN and
 calls the same methods with the same inputs: the prover shards the batch
 over dp and the MSMs and the QAP lift over tp, and every rank gets the
-whole batch's proofs; the host work (witness checks, proof values,
+whole batch's proofs with their values, the public wires gathered over dp
+beside the MSM results; the rest of the host work (witness checks,
 verification) runs on every rank. The stateful tree is the host
 OptimalMerkleTree, whose rehash runs in the native host library when it
 loads (tree/merkle.py).
 
 Proving is batch-first: `generate_proofs` evaluates witnesses, runs the
 QAP witness map and all MSMs for the whole batch on the device
-(groth16/prover.Groth16Prover). Single-proof methods are the batch of one.
+(groth16/prover.Groth16Prover), and reads each proof's values from the
+public wires of the assignment it attests to (protocol/proof.
+proof_values_from_public). Single-proof methods are the batch of one.
 
 Method parity with the reference (tree ops public.rs:292-593, proof ops
 public.rs:595-955): set_leaf/get_leaf/set_leaves_from/init_tree_with_leaves/
@@ -44,7 +47,8 @@ from .constants import DEFAULT_MAX_OUT, DEFAULT_TREE_DEPTH, NUM_LIMBS, R
 from .ff.field import FrField, encode_canonical_fast
 from .groth16.prover import Groth16Prover, PartialProof
 from .groth16.verifier import prepare_verifying_key, rln_public_inputs, verify_proof
-from .protocol.proof import RLNProof, RLNProofValues, proof_values_from_witness
+from .protocol.proof import (RLNProof, RLNProofValues, proof_values_from_public,
+                             proof_values_from_witness)
 from .protocol.slashing import recover_secret
 from .protocol.witness import RLNPartialWitnessInput, RLNWitnessInput
 from .resources import load_resource
@@ -215,7 +219,8 @@ class RLN:
         ss: Optional[Sequence[int]] = None,
         metrics=None,
     ) -> List[Tuple[tuple, RLNProofValues]]:
-        """Batched prove: the whole batch runs through the device pipeline.
+        """Batched prove: the whole batch runs through the device pipeline,
+        and each proof's values are the public wires of its own assignment.
         Pass a runtime.profiling.PipelineMetrics as `metrics` for a per-stage
         timing report."""
         with span("rln.generate_proofs"):
@@ -224,8 +229,6 @@ class RLN:
             with span("facade.validate"):
                 for w in witnesses:
                     w.validate_against_graph(self.graph)
-            with span("facade.values"):
-                values = [proof_values_from_witness(w) for w in witnesses]
             if rs is not None and len(rs) != len(witnesses):
                 raise errors.ZerokitError(
                     f"rs has {len(rs)} entries, expected {len(witnesses)}"
@@ -240,7 +243,9 @@ class RLN:
                 if ss is None:
                     ss = self._random_scalars(len(witnesses))
                 named = self._batch_named_inputs(witnesses)
-            proofs = self.prover.prove_batch(named, rs, ss, metrics=metrics)
+            proofs, publics = self.prover.prove_batch_public(named, rs, ss, metrics=metrics)
+            with span("facade.values"):
+                values = [proof_values_from_public(p, self.graph.max_out) for p in publics]
             return list(zip(proofs, values))
 
     def generate_proof(

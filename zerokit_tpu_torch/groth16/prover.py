@@ -14,6 +14,10 @@ evaluator, circuit/witness_eval.py; the host interpreter for a graph it
 rejects), qap_witness_map, from_mont, msm_ab1l (a/b1/l as one
 FusedMSMGroup), msm_b2, msm_h, host_assembly (native batched blinding
 assembly). Everything before host_assembly runs on the prover's device.
+Between witness_eval and the witness map, outside every stage, the span
+host.public reads the batch's public wires z[1:num_inputs] to the host
+(public_wires): each proof attests to exactly these values, so
+prove_batch_public hands them back beside the proofs.
 
 Partial/finish (reference rln/src/partial_proof.rs:108-299): the witness is
 split by a known-mask; prove_partial precomputes the four MSMs over the
@@ -26,8 +30,9 @@ lanes and dp rank d takes its contiguous share of them: it evaluates those
 witnesses (W1), maps them (the QAP lift sharded over tp when the domain
 splits, parallel/ntt_sharded.py) and runs their MSMs through ShardedMSMs
 (points sharded over tp). The affine MSM results are gathered over dp
-(stage dp_gather), and every rank assembles and returns the whole batch's
-proofs, equal to the single-device proofs at the same (r, s). One device
+(stage dp_gather) with the lanes' public wires, and every rank assembles
+and returns the whole batch's proofs and public wires, the proofs equal to
+the single-device proofs at the same (r, s). One device
 runs the same path with all lanes its own and no gather.
 prove_partial / finish_proof run through the same ShardedMSMs, whose
 __call__ splits and gathers the lanes over dp itself.
@@ -46,7 +51,7 @@ from ..circuit import graph as graphmod
 from ..circuit import witness_host
 from ..circuit.witness_eval import UnsupportedGraph, WitnessEvaluator, compile_graph
 from ..constants import NUM_LIMBS, R
-from ..ff.field import FrField, encode_canonical_fast, resolve_device
+from ..ff.field import FrField, decode_canonical_fast, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
 from ..hostmath import bn254
 from ..runtime.profiling import span, stage_timer
@@ -68,6 +73,16 @@ def _padded_batch(b: int) -> int:
     while n < b:
         n *= 2
     return n
+
+
+def public_wires(assignment: torch.Tensor, num_inputs: int) -> List[List[int]]:
+    """The public wires z[1:num_inputs] of every lane of the Montgomery
+    assignment (16, n_wires, B), canonical, one list a lane: one product
+    by 1 on the device over the small slice, then one copy to the host."""
+    canon = FrField.from_mont(assignment[:, 1:num_inputs])
+    vals = decode_canonical_fast(canon.cpu())  # wire-major: vals[i * B + b]
+    width = assignment.shape[2]
+    return [vals[b::width] for b in range(width)]
 
 
 @dataclass
@@ -219,6 +234,18 @@ class Groth16Prover:
         ss: Sequence[int],
         metrics=None,
     ) -> List[Proof]:
+        return self.prove_batch_public(named_inputs, rs, ss, metrics)[0]
+
+    def prove_batch_public(
+        self,
+        named_inputs: Dict[str, Sequence[Sequence[int]]],
+        rs: Sequence[int],
+        ss: Sequence[int],
+        metrics=None,
+    ) -> Tuple[List[Proof], List[List[int]]]:
+        """(every lane's proof, every lane's public wires z[1:num_inputs]
+        as the proof attests to them, canonical). Counts the lanes under
+        metrics.counts["public_from_assignment"]."""
         mine = self._my_lanes(len(rs))
         width = mine.stop - mine.start
         with span("prover.pad"):
@@ -228,24 +255,30 @@ class Groth16Prover:
             }
         with self._stage(metrics, "witness_eval"):
             assignment = self.full_assignments(named, width)
-        return self._prove_lanes(assignment[:, :, :width], rs, ss, metrics)
+        out = self._prove_lanes(assignment[:, :, :width], rs, ss, metrics)
+        if metrics is not None:
+            metrics.count("public_from_assignment", len(rs))
+        return out
 
     def prove_batch_with_assignment(self, assignment, rs, ss, metrics=None) -> List[Proof]:
         """assignment: (16, n_wires, B) Montgomery limbs of the whole batch
         (on every rank under a mesh); B >= len(rs)."""
         mine = self._my_lanes(len(rs))
         assignment = _pad_lanes(assignment.to(self.device), mine.stop)[:, :, mine]
-        return self._prove_lanes(assignment, rs, ss, metrics)
+        return self._prove_lanes(assignment, rs, ss, metrics)[0]
 
-    def _prove_lanes(self, assignment, rs, ss, metrics) -> List[Proof]:
-        """This process's lanes (16, n_wires, width) through the witness map
-        and the MSMs in passes of LANE_BATCH lanes (a ragged pass padded to
-        its size class, its padding lanes replicating its first); under a
-        mesh the affine results are gathered over dp. Then every lane's
-        proof."""
+    def _prove_lanes(self, assignment, rs, ss, metrics) -> Tuple[List[Proof], List[List[int]]]:
+        """This process's lanes (16, n_wires, width): their public wires read
+        to the host, then the witness map and the MSMs in passes of
+        LANE_BATCH lanes (a ragged pass padded to its size class, its
+        padding lanes replicating its first); under a mesh the affine
+        results and the public wires are gathered over dp. Then every
+        lane's proof, and every lane's public wires."""
         batch = len(rs)
         if metrics is not None:
             metrics.batch = batch
+        with span("host.public"):
+            publics = public_wires(assignment, self.num_inputs)
         points: Dict[str, list] = {key: [] for key in _POINT_KEYS}
         for lo in range(0, assignment.shape[2], LANE_BATCH):
             part = assignment[:, :, lo : lo + LANE_BATCH]
@@ -258,11 +291,12 @@ class Groth16Prover:
             from ..parallel.sharded import all_gather_object
 
             with self._stage(metrics, "dp_gather"):
-                shares = all_gather_object(self.mesh, points, "dp")
-            points = {key: [p for share in shares for p in share[key]] for key in _POINT_KEYS}
+                shares = all_gather_object(self.mesh, (points, publics), "dp")
+            points = {key: [p for share, _ in shares for p in share[key]] for key in _POINT_KEYS}
+            publics = [p for _, share in shares for p in share]
         points = {key: points[key][:batch] for key in _POINT_KEYS}
         self.last_batch.update(points)
-        return self._assemble_batch(points, rs, ss, metrics)
+        return self._assemble_batch(points, rs, ss, metrics), publics[:batch]
 
     def _affine_results(self, assignment, metrics) -> Dict[str, list]:
         """The witness map and the five MSMs of the lanes of assignment

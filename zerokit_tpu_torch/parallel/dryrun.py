@@ -323,6 +323,28 @@ def facade_scalars(tp: int, dp: int, device: str, zkey, count: int) -> list:
     return RLN(zkey, None, mesh=mesh)._random_scalars(count)
 
 
+def facade_values(tp: int, dp: int, device: str, witnesses) -> dict:
+    """RLN(mesh=) on the depth-10 circuit: generate_proofs of the
+    witnesses, whose values each dp rank reads from its own lanes' public
+    wires and gathers over dp beside the MSM results. The witness map, the
+    MSMs and the assembly are stand-ins (each lane's points and proof None;
+    test_mesh_prover_equals_jax holds the mesh's proofs): the witness
+    evaluator, the readout and the gather run. Returns the values, the
+    counts and the stages."""
+    from ..groth16.prover import _POINT_KEYS
+    from ..runtime.profiling import PipelineMetrics
+
+    mesh = make_mesh(tp=tp, dp=dp, device=device)
+    rln = _rln(mesh, 10)
+    rln.prover._affine_results = lambda part, metrics: {
+        key: [None] * part.shape[2] for key in _POINT_KEYS}
+    rln.prover._assemble_batch = lambda points, rs, ss, metrics: [None] * len(rs)
+    metrics = PipelineMetrics()
+    out = rln.generate_proofs(witnesses, metrics=metrics)
+    return {"rank": mesh.rank, "proofs": [p for p, _ in out], "values": [v for _, v in out],
+            "counts": metrics.counts, "stages": sorted(metrics.stages)}
+
+
 def prove_file(path: str, device: str) -> dict:
     """chip_smoke.py phase 12's rank body. The file (written by this
     program's caller) holds the circuit's depth (20 unless given), the named

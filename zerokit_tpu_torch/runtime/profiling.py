@@ -6,6 +6,9 @@ Counterpart of zerokit_tpu/runtime/profiling.py for one NVIDIA GPU:
     that ran on the card ends with torch.cuda.synchronize(), so its time
     includes the device work it queued, not only the enqueue. Each stage is
     also the span "stage.<name>", its closing synchronize inside.
+    PipelineMetrics.counts holds the program's counters beside the stages
+    (public_from_assignment: lanes whose public values the prover read
+    from their assignment).
   * device_ms(): the one kernel timer, device time per call of calls run
     back to back; launch_counts() / reset_launches(): every kernel
     wrapper's launch counter.
@@ -94,13 +97,18 @@ WINDOW = "zk.trace_window"  # the host range trace() puts around the traced bloc
 @dataclass
 class PipelineMetrics:
     stages: Dict[str, float] = field(default_factory=dict)
+    counts: Dict[str, int] = field(default_factory=dict)
     batch: int = 0
 
     def record(self, name: str, seconds: float) -> None:
         self.stages[name] = self.stages.get(name, 0.0) + seconds
 
+    def count(self, name: str, n: int) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
+
     def report(self) -> dict:
-        return {"batch": self.batch, "stages": dict(sorted(self.stages.items()))}
+        return {"batch": self.batch, "stages": dict(sorted(self.stages.items())),
+                "counts": dict(sorted(self.counts.items()))}
 
     def dumps(self) -> str:
         return json.dumps(self.report())
