@@ -1,12 +1,13 @@
 """The two loops a traffic file can ask for, and what each reports.
 
-closed: one caller, the program in this process. Set-up loads the engine,
-runs the prover's warm-up and one call at the cell's batch width; the
-window then calls generate_proofs back to back until --seconds have
-passed, and closes when the last call returns. proofs_per_s is every
-proof of a call that returned, over the whole window. With --trace 1 the
-window runs as without, and a traced segment of trace_calls more calls
-follows it under torch.profiler.
+closed: one caller, the program in this process (program.py says what the
+loop calls on it). Set-up builds the program, hands it the traffic's pool
+of members where the traffic has one and the program takes it, runs its
+warm-up and one call at the cell's batch width; the window then calls it
+back to back until --seconds have passed, and closes when the last call
+returns. proofs_per_s is every proof of a call that returned, over the
+whole window. With --trace 1 the window runs as without, and a traced
+segment of trace_calls more calls follows it under torch.profiler.
 
 open: the prover service in a process of its own (serve_child.py),
 single-witness POST /prove requests from this process at the traffic's
@@ -51,6 +52,8 @@ def closed(config: dict, traffic: dict, seed: int, seconds: float, trace: bool,
            started: float, make_program: Callable, on_card: bool = True) -> Dict:
     batch = int(traffic["batch"])
     prog = make_program(config)
+    if traffic.get("members") and hasattr(prog, "members"):
+        prog.members(gen.members(config, traffic, seed))
     prog.warm_up()
     prog.call(prog.prepare(gen.witnesses(config, traffic, seed, "warm", 0, batch)),
               prog.metrics_type())

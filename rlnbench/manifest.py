@@ -1,10 +1,12 @@
 """BENCHMARK.json and the files it names.
 
-Every configuration, traffic mix and per-layer metric is a file of its own,
-found by its name: configs/<name>.json, traffic/<name>.json and
-metrics/<name>.py under this folder (or under the folder a test gives). A
-new cell needs new files and a new entry, never an edit of a file that is
-there.
+Every configuration, traffic mix, per-layer metric and program is a file of
+its own, found by its name: configs/<name>.json, traffic/<name>.json,
+metrics/<name>.py and programs/<name>.py under this folder (or under the
+folder a test gives). A configuration names its program under "program";
+without that key the closed loop drives program.py's Program. A new cell
+needs new files (configurations, traffic, metrics, programs) and a new
+entry in BENCHMARK.json, never an edit of a file that is there.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ class Cell:
 class Manifest:
     def __init__(self, data: dict, base: str = HERE):
         """data: the parsed BENCHMARK.json; base: the folder that holds
-        configs/, traffic/ and metrics/."""
+        configs/, traffic/, metrics/ and programs/."""
         self.data = data
         self.base = base
 
@@ -69,12 +71,23 @@ class Manifest:
 
     def reader(self, metric: str) -> Callable[[dict], Optional[float]]:
         """The read(ctx) function of metrics/<metric>.py."""
-        path = os.path.join(self.base, "metrics", f"{metric}.py")
-        spec = importlib.util.spec_from_file_location(
-            "rlnbench_metric_" + re.sub(r"\W", "_", metric), path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module.read
+        return _load(self.base, "metrics", metric).read
+
+    def program(self, name: str) -> Callable[[dict], object]:
+        """The Program class of programs/<name>.py: a closed loop's system
+        under test, built from the configuration (program.py says what the
+        loop calls on it)."""
+        return _load(self.base, "programs", name).Program
+
+
+def _load(base: str, kind: str, name: str):
+    """The module in <base>/<kind>/<name>.py, loaded from its file."""
+    path = os.path.join(base, kind, f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"rlnbench_{kind}_" + re.sub(r"\W", "_", name), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _json(path: str) -> dict:

@@ -7,7 +7,13 @@ inputs), over window_s.
 The sum runs over the gaps that the breakdown lists, the ten longest by
 name, so a facade gap outside them is not counted. None without a trace,
 or where no listed gap is a facade.* range (a program without those
-spans)."""
+spans).
+
+No cell reports it: BENCHMARK.json names it no more, since the facade's
+gaps (a few ms a call) fall below the ten that summarize lists and it read
+nothing in either cell. The reader stays while a test of the port's spans
+(tests/test_torch_tracing.py) rehearses summarize's facade naming through
+it, and goes with that test."""
 
 
 def read(ctx):

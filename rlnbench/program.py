@@ -1,11 +1,34 @@
 """The system under test, as the closed loop drives it: the port's RLN
 facade over one configuration's circuit, on the card.
 
-This is the only module of the benchmark's own process that imports the
-port. It builds the engine through the port's public readers and facade,
-turns the generator's raw witness fields into the port's witness type
-before a call's clock starts, and hands back each proof with its public
-values as a plain dict.
+This module and programs/<name>.py, the program a configuration names, are
+the only modules of the benchmark's own process that import the port. This
+one builds the engine through the port's public readers and facade, turns
+the generator's raw witness fields into the port's witness type before a
+call's clock starts, and hands back each proof with its public values as a
+plain dict.
+
+What the closed loop (loops.closed) relies on, in every program:
+
+    Program(config)          built in set-up from the configuration's dict
+    members(pool)            optional: called once, before warm_up, where the
+                             traffic has `members`, with traffic.members()'s
+                             list, the pool in root epoch 0; work a deployment
+                             does once a member and root goes here, inside
+                             setup_s. Each raw witness names its "member" and
+                             "epoch": when the epoch moves, every member's
+                             path changes, and work kept for the old path is
+                             done again in the window
+    warm_up()                set-up's own work, before a first call
+    prepare(raw)             a call's raw witnesses (traffic.witnesses) made
+                             into the program's inputs, before its clock
+    call(prepared, metrics)  one timed call; metrics is a metrics_type() or
+                             None (the traced segment)
+    answers(out)             a call's result as [(proof, values dict)], one a
+                             lane, which the check compares
+    metrics_type             a class whose instances carry `stages`, a dict
+                             of stage name to seconds that the stage readers
+                             (metrics/*_ms.batch.py) read
 """
 
 from __future__ import annotations

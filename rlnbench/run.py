@@ -89,7 +89,9 @@ def result_line(manifest, cell, out: dict, trace: bool) -> dict:
 
 def main(argv=None, make_program=None, on_card: bool = True, manifest=None) -> int:
     """make_program, on_card and manifest let a test drive a run on the CPU
-    with a stand-in for the program; a run on the card passes none."""
+    with a stand-in for the program; a run on the card passes none, and a
+    closed loop drives the program its configuration names (Manifest.program)
+    or, without one, program.py's Program."""
     from . import check, loops
     from .manifest import Manifest
 
@@ -109,10 +111,10 @@ def main(argv=None, make_program=None, on_card: bool = True, manifest=None) -> i
             return 2
     try:
         if traffic["loop"] == "closed":
-            if make_program is None:
-                from .program import Program
-
-                make_program = Program
+            if make_program is None and "program" in config:
+                make_program = manifest.program(config["program"])
+            elif make_program is None:
+                from .program import Program as make_program
             out = loops.closed(config, traffic, args.seed, args.seconds, bool(args.trace),
                                started, make_program, on_card)
         else:

@@ -61,3 +61,51 @@ class AlteredAnswerProgram(ReferenceProgram):
 
     def call(self, ws, metrics=None):
         return [((a, b, msm.sum_points([c, (1, 2)])), v) for (a, b, c), v in super().call(ws)]
+
+
+MEMBER = ("identity_secret", "user_message_limit", "path_elements", "identity_path_index")
+
+
+class PooledProgram(ReferenceProgram):
+    """The reference in the program's place for traffic with `members`:
+    takes the pool (root epoch 0) in set-up and keeps each member's fields
+    by (member, epoch); a lane in an epoch it has not seen takes them from
+    its witness, as a deployment does a member's work again for a new root.
+    Proves each lane from the kept fields and the message's own, and
+    appends what the loop called, in order, to the file the configuration
+    names under "events"."""
+
+    def members(self, pool):
+        self.kept = {(k, 0): m for k, m in enumerate(pool)}
+        self._event("members", len(pool))
+
+    def warm_up(self):
+        self._event("warm_up", len(getattr(self, "kept", {})))
+
+    def call(self, ws, metrics=None):
+        return super().call([{**w, **self._kept(w)} for w in ws], metrics)
+
+    def _kept(self, w):
+        key = (w["member"], w["epoch"])
+        if key not in self.kept:
+            self.kept[key] = {f: w[f] for f in MEMBER}
+        return self.kept[key]
+
+    def _event(self, name, count):
+        with open(self.config["events"], "a") as f:
+            f.write(f"{name} {count}\n")
+
+
+class AlteredPooledProgram(PooledProgram):
+    """PooledProgram with every proof's C moved by the generator of G1."""
+
+    def call(self, ws, metrics=None):
+        return [((a, b, msm.sum_points([c, (1, 2)])), v) for (a, b, c), v in super().call(ws)]
+
+
+class StalePooledProgram(PooledProgram):
+    """PooledProgram that keeps each member's epoch-0 fields after the root
+    has changed: work done for a path that no longer holds."""
+
+    def _kept(self, w):
+        return self.kept[(w["member"], 0)]

@@ -3,13 +3,18 @@ name begins with the JAX package's and is not it. Nothing the benchmark
 runs loads JAX or the JAX package, and the reference loads nothing of the
 port."""
 
+import glob
+import os
 import subprocess
 import sys
 
 import pytest
 
-from rlnbench.manifest import ROOT
+from rlnbench.manifest import HERE, ROOT
 from rlnbench.run import forbidden_modules
+
+PROGRAMS = sorted(os.path.basename(p)[:-3] for p in glob.glob(os.path.join(HERE, "programs",
+                                                                           "*.py")))
 
 
 def test_top_level_names_compared_whole():
@@ -32,7 +37,12 @@ def _loaded(code: str) -> set:
     "rlnbench.sweep rlnbench.control rlnbench.yardstick",
 ])
 def test_the_harness_loads_no_jax(modules):
-    loaded = _loaded("\n".join(f"import {m}" for m in modules.split()))
+    """Every module of the harness, and every program a configuration can
+    name (programs/*.py, loaded as the closed loop loads them)."""
+    code = "\n".join(f"import {m}" for m in modules.split())
+    code += "\nfrom rlnbench.manifest import Manifest\n"
+    code += "".join(f"Manifest.load().program({p!r})\n" for p in PROGRAMS)
+    loaded = _loaded(code)
     assert forbidden_modules(loaded) == []
 
 

@@ -102,6 +102,59 @@ def test_a_bad_name_or_unit_is_found(data):
     assert any("unit" in p for p in found) and any("a,b" in p for p in found)
 
 
+def missing_programs(man: Manifest) -> List[str]:
+    """The programs that a configuration of the manifest names under
+    "program" and that have no file programs/<name>.py."""
+    out = []
+    for c in man.data["configs"]:
+        name = man.config(c["name"]).get("program")
+        if name is not None and not os.path.exists(os.path.join(man.base, "programs",
+                                                                f"{name}.py")):
+            out.append(f"{c['name']}: no programs/{name}.py")
+    return out
+
+
+def test_a_named_program_has_its_file(data, small_bench):
+    assert missing_programs(Manifest(data)) == []
+    man, bench, base = small_bench
+    cfg = json.loads((base / "configs" / "rln-v2-depth10.json").read_text())
+    cfg.update(name="named", program="standin-named")
+    (base / "configs" / "named.json").write_text(json.dumps(cfg))
+    bench["configs"].append({"name": "named", "source": "https://example.org", "file":
+                             str(base / "configs" / "named.json"), "reduced": [], "why": "test"})
+    assert missing_programs(man) == ["named: no programs/standin-named.py"]
+    (base / "programs").mkdir()
+    (base / "programs" / "standin-named.py").write_text(
+        "from rlnbench.tests.standins import ReferenceProgram as Program\n")
+    assert missing_programs(man) == []
+    assert man.program("standin-named").__name__ == "ReferenceProgram"
+
+
+def pools_without_a_root(man: Manifest) -> List[str]:
+    """The cells whose traffic keeps a pool of `members` and gives no
+    positive `root_every`: a pool whose root never changes."""
+    out = []
+    for w in man.data["workloads"]:
+        t = man.traffic(w["traffic"])
+        every = t.get("root_every")
+        if t.get("members") and not (isinstance(every, int) and every >= 1):
+            out.append(f"{w['name']}: members without root_every")
+    return out
+
+
+def test_a_pool_of_members_has_a_root_epoch(data, small_bench):
+    assert pools_without_a_root(Manifest(data)) == []
+    man, bench, base = small_bench
+    bench["workloads"].append({"name": "pooled", "config": "rln-v2-depth10",
+                               "traffic": "closed-pool", "chips": 1, "why": "test"})
+    for every, found in ((None, 1), (0, 1), (64, 0)):
+        t = {"loop": "closed", "batch": 4, "members": 16}
+        if every is not None:
+            t["root_every"] = every
+        (base / "traffic" / "closed-pool.json").write_text(json.dumps(t))
+        assert pools_without_a_root(man) == ["pooled: members without root_every"] * found
+
+
 @pytest.mark.parametrize("name", ["rln-v2-depth20", "rln-multi-msg-depth20-maxout4"])
 def test_config_counts_are_the_artifacts(name):
     with open(os.path.join(HERE, "configs", name + ".json")) as f:
