@@ -39,7 +39,10 @@ MSMs, then a batch of 16 of the multi-message-id circuit (witnesses from
 W1 and W2), each with the launch counters at 0 before and read after,
 (5) a second, warm batch, (6) the kernels' launch counts in each proving
 run of phases 4 and 5 (every kernel of its path launched), (6b) one depth-20
-partial + finish proof against the full proof, (7) the K6 tool: K6 (tensor-core Montgomery product)
+partial + finish proof against the full proof, then 16 lanes through the
+batched partial and finish on the graph's known-mask against the full
+proofs, each with its launch counts (every kernel of its path launched),
+and each subset MSM against its masked MSM, (7) the K6 tool: K6 (tensor-core Montgomery product)
 against its plain version and K1 fq at 2^17 lanes, its persistent grid
 and tensor-core opcodes, (8) the tools path with
 its launch counts: the microbenchmark, whose chains are checked against
@@ -931,8 +934,9 @@ def prove_and_check(prover, rng, metrics, multi: bool = False) -> float:
 
 
 def phase_partial(prover, rng) -> None:
-    """One depth-20 partial + finish proof (a seeded half of the assignment
-    known) against the full proof at the same (r, s), pairing-verified."""
+    """One depth-20 partial + finish proof (the graph's known entries: all
+    but the wires the message inputs reach) against the full proof at the
+    same (r, s), pairing-verified."""
     from zerokit_tpu_torch.ff.field import FrField, decode_canonical_fast
     from zerokit_tpu_torch.groth16.prover import random_batch_inputs
     from zerokit_tpu_torch.groth16.verifier import prepare_verifying_key, verify_proof
@@ -940,7 +944,7 @@ def phase_partial(prover, rng) -> None:
     named, rs, ss = random_batch_inputs(rng, 1, DEPTH)
     assignment = prover.full_assignments(named, 1)[:, :, :1].contiguous()
     z = decode_canonical_fast(FrField.from_mont(assignment)[:, :, 0])
-    known = rng.random(len(z) - 1) < 0.5
+    known = prover.known_wires[1:]
     t0 = time.perf_counter()
     partial = prover.prove_partial([v if k else None for v, k in zip(z[1:], known)])
     t1 = time.perf_counter()
@@ -953,6 +957,69 @@ def phase_partial(prover, rng) -> None:
         raise AssertionError("partial + finish proof failed pairing verification")
     log(f"  partial ({int(known.sum())} of {len(known)} entries known) {t1 - t0:.3f} s + finish "
         f"{t2 - t1:.3f} s: equals the full proof at the same (r, s), verified (pairing)")
+
+
+def phase_partial_batch(prover, rng) -> None:
+    """16 depth-20 lanes through the batched two-phase path on the graph's
+    known-mask: partial_assignments + prove_partial_batch, then
+    finish_batch_public, each finish equal to the full proof at the same (r,
+    s) and its public wires to the full proof's, pairing-verified; then
+    each subset MSM (known and unknown wires of a, b1, b2, l) against the
+    masked MSM over the whole query, on the full assignment. The launch
+    counters, reset before each call, show the partial launching
+    PARTIAL_PATH and the finish the whole DEPTH20_PATH."""
+    from zerokit_tpu_torch.circuit.witness_eval import MESSAGE_INPUTS
+    from zerokit_tpu_torch.ff.field import FrField
+    from zerokit_tpu_torch.groth16.prover import random_batch_inputs
+    from zerokit_tpu_torch.runtime.profiling import PipelineMetrics, launch_counts, reset_launches
+
+    named, rs, ss = random_batch_inputs(rng, BATCH, DEPTH)
+    known_named = {name: ([[0] * BATCH for _ in cols] if name in MESSAGE_INPUTS else cols)
+                   for name, cols in named.items()}
+    metrics = PipelineMetrics()
+    reset_launches()
+    t0 = time.perf_counter()
+    partials = prover.prove_partial_batch(
+        prover.partial_assignments(known_named, BATCH, metrics), metrics=metrics)
+    t1 = time.perf_counter()
+    partial_counts = launch_counts()
+    reset_launches()
+    proofs, publics = prover.finish_batch_public(partials, named, rs, ss, metrics)
+    t2 = time.perf_counter()
+    finish_counts = launch_counts()
+    full, full_publics = prover.prove_batch_public(named, rs, ss)
+    t3 = time.perf_counter()
+    if proofs != full or publics != full_publics:
+        raise AssertionError("a batched finish differs from the full proof at the same (r, s)")
+    verify_batch(prover, proofs)
+    log(f"  {BATCH} partials {t1 - t0:.3f} s, their finishes {t2 - t1:.3f} s, the full batch "
+        f"{t3 - t2:.3f} s (warm): every finish equals its full proof; {metrics.dumps()}")
+    if metrics.counts["finish_points_g1eq"] != BATCH * prover.finish_points():
+        raise AssertionError("finish_points_g1eq is not the finish's own points")
+    log(f"  launches in the batched partial: {partial_counts}")
+    log(f"  launches in the batched finish: {finish_counts}")
+    for which, path, counts in (("partial", PARTIAL_PATH, partial_counts),
+                                ("finish", DEPTH20_PATH, finish_counts)):
+        for key in path:
+            if counts[KERNELS[key][3]] <= 0:
+                raise AssertionError(f"{key} {KERNELS[key][0]} was not launched by the batched "
+                                     f"{which}")
+
+    z = FrField.from_mont(prover.full_assignments(named, BATCH)[:, :, :BATCH])
+    known, unknown = prover._split()
+    ni = prover.num_inputs
+    whole = {"a": (prover.msm_a, z), "b1": (prover.msm_b1, z), "b2": (prover.msm_b2, z),
+             "l": (prover.msm_l, z[:, ni:])}
+    for side, part, on in (("known", known, prover.known_wires),
+                           ("unknown", unknown, ~prover.known_wires)):
+        for key, (msm, scalars) in whole.items():
+            mask = torch.from_numpy(on[ni:] if key == "l" else on)[:, None]
+            got = part.msms[key].to_affine_ints(part.msms[key].local(scalars))
+            want = msm.to_affine_ints(msm(scalars, mask=mask))
+            if got != want:
+                raise AssertionError(f"the {side} subset MSM {key} differs from its masked MSM")
+        log(f"  {side} subsets a/b1/b2/l ({part.points_g1eq} "
+            f"G1-equivalent points a lane) equal their masked MSMs on {BATCH} lanes")
 
 
 def check_lane0(prover):
@@ -2129,6 +2196,9 @@ KERNELS = {  # key -> (name, source, TPU kernel it replaces, launch counter)
 # the kernels each proving run launches: the depth-20 graph has no Div
 DEPTH20_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "K4", "K5", "W1")
 MULTI_PATH = DEPTH20_PATH + ("W2",)
+# phase 6b's batched partial: W1 with the message inputs at 0, the known
+# subsets' MSMs (K1 from_mont, K2, K3); its finish runs the whole DEPTH20_PATH
+PARTIAL_PATH = ("K1", "K2", "K2 gather", "K3 fine", "K3 coarse", "W1")
 # phase 10's main path: the member tree (K1, P1) and the facade's batches
 TREE_PATH = DEPTH20_PATH + ("P1",)
 # phase 11's serving surface proves through prove_batch; its host trees
@@ -2226,8 +2296,9 @@ def main() -> int:
                                      f"{which} batch")
 
     # 6b. partial / finish ------------------------------------------------
-    log("[6b] partial + finish proving, depth 20")
+    log("[6b] partial + finish proving, depth 20: one lane, then a batch")
     phase_partial(prover, rng)
+    phase_partial_batch(prover, rng)
 
     # 7. the tools path's kernels against their plain versions --------------
     log("[7] the K6 tool: K6 against its plain version and K1 fq, on the card")

@@ -218,7 +218,7 @@ def test_only_the_roofline_ranges_start_with_msm():
     assert {n for n in names if n.startswith(("witness.", "qap."))} == OTHER_RANGES
     assert FACADE | HOST <= names
     assert all(n.startswith(("rln.", "facade.", "prover.", "host.", "stage.", "parallel.",
-                             "witness.", "qap.", "msm.")) for n in names), names
+                             "witness.", "qap.", "msm.", "partial.", "finish.")) for n in names), names
 
 
 def _facade_idle_pct():

@@ -24,7 +24,12 @@ Proving is batch-first: `generate_proofs` evaluates witnesses, runs the
 QAP witness map and all MSMs for the whole batch on the device
 (groth16/prover.Groth16Prover), and reads each proof's values from the
 public wires of the assignment it attests to (protocol/proof.
-proof_values_from_public). Single-proof methods are the batch of one.
+proof_values_from_public). Two-phase proving is batched the same way:
+`generate_partial_proofs` makes each member's partial proof (its witness
+on the device with the message inputs unknown, the known-wire MSMs) and
+`finish_proofs` proves each message from its member's partial (the
+unknown-wire MSMs, the h MSM, the native blinding). Single-proof methods
+are the batch of one.
 
 Method parity with the reference (tree ops public.rs:292-593, proof ops
 public.rs:595-955): set_leaf/get_leaf/set_leaves_from/init_tree_with_leaves/
@@ -203,8 +208,12 @@ class RLN:
     def _batch_named_inputs(
         self, witnesses: Sequence[RLNWitnessInput]
     ) -> Dict[str, List[List[int]]]:
+        return self._stack_named([w.named_inputs() for w in witnesses])
+
+    @staticmethod
+    def _stack_named(per_witness: Sequence[Dict[str, List[int]]]) -> Dict[str, List[List[int]]]:
+        """Each witness's named inputs -> name -> slots -> lanes."""
         named: Dict[str, List[List[int]]] = {}
-        per_witness = [w.named_inputs() for w in witnesses]
         for name in per_witness[0]:
             length = len(per_witness[0][name])
             named[name] = [
@@ -226,27 +235,33 @@ class RLN:
         with span("rln.generate_proofs"):
             if not witnesses:
                 return []
-            with span("facade.validate"):
-                for w in witnesses:
-                    w.validate_against_graph(self.graph)
-            if rs is not None and len(rs) != len(witnesses):
-                raise errors.ZerokitError(
-                    f"rs has {len(rs)} entries, expected {len(witnesses)}"
-                )
-            if ss is not None and len(ss) != len(witnesses):
-                raise errors.ZerokitError(
-                    f"ss has {len(ss)} entries, expected {len(witnesses)}"
-                )
-            with span("facade.inputs"):
-                if rs is None:
-                    rs = self._random_scalars(len(witnesses))
-                if ss is None:
-                    ss = self._random_scalars(len(witnesses))
-                named = self._batch_named_inputs(witnesses)
-            proofs, publics = self.prover.prove_batch_public(named, rs, ss, metrics=metrics)
-            with span("facade.values"):
-                values = [proof_values_from_public(p, self.graph.max_out) for p in publics]
-            return list(zip(proofs, values))
+            named, rs, ss = self._proof_inputs(witnesses, rs, ss)
+            return self._with_values(self.prover.prove_batch_public(named, rs, ss,
+                                                                    metrics=metrics))
+
+    def _proof_inputs(self, witnesses, rs, ss):
+        """The witnesses validated against the graph, and (named inputs,
+        rs, ss), the blinding scalars drawn where the caller gave none."""
+        with span("facade.validate"):
+            for w in witnesses:
+                w.validate_against_graph(self.graph)
+        if rs is not None and len(rs) != len(witnesses):
+            raise errors.ZerokitError(f"rs has {len(rs)} entries, expected {len(witnesses)}")
+        if ss is not None and len(ss) != len(witnesses):
+            raise errors.ZerokitError(f"ss has {len(ss)} entries, expected {len(witnesses)}")
+        with span("facade.inputs"):
+            if rs is None:
+                rs = self._random_scalars(len(witnesses))
+            if ss is None:
+                ss = self._random_scalars(len(witnesses))
+            return self._batch_named_inputs(witnesses), rs, ss
+
+    def _with_values(self, proved) -> List[Tuple[tuple, RLNProofValues]]:
+        """(proofs, public wires) -> each proof beside its values."""
+        proofs, publics = proved
+        with span("facade.values"):
+            values = [proof_values_from_public(p, self.graph.max_out) for p in publics]
+        return list(zip(proofs, values))
 
     def generate_proof(
         self,
@@ -316,13 +331,52 @@ class RLN:
         ss = [s if s is not None else self._random_scalars(1)[0]]
         return self.generate_proofs_with_witness([calculated_witness], [witness], rs, ss)[0]
 
-    def generate_partial_proof(self, partial_witness: RLNPartialWitnessInput) -> PartialProof:
-        partial_witness.validate_against_graph(self.graph)
-        from .circuit.witness_host import calc_witness_partial
+    def generate_partial_proofs(
+        self, partial_witnesses: Sequence[RLNPartialWitnessInput], metrics=None
+    ) -> List[PartialProof]:
+        """Two-phase proving, phase 1, batched (partial_proof.rs:108-171):
+        each member's partial proof over the wires its identity and path
+        fix. The witnesses run through the device evaluator with the
+        message inputs at 0 (the wires those reach are the graph's unknown
+        ones, which the partial does not read), then the known-wire MSMs."""
+        with span("rln.generate_partial_proofs"):
+            if not partial_witnesses:
+                return []
+            with span("facade.validate"):
+                for pw in partial_witnesses:
+                    pw.validate_against_graph(self.graph)
+            with span("facade.inputs"):
+                named = self._stack_named([
+                    {name: [0 if v is None else v for v in vals]
+                     for name, vals in pw.named_inputs_partial(self.graph.max_out).items()}
+                    for pw in partial_witnesses])
+            assignment = self.prover.partial_assignments(named, len(partial_witnesses), metrics)
+            return self.prover.prove_partial_batch(assignment, metrics=metrics)
 
-        named = partial_witness.named_inputs_partial(self.graph.max_out)
-        assignment = calc_witness_partial(named, self.graph)
-        return self.prover.prove_partial(assignment[1:])
+    def finish_proofs(
+        self,
+        partials: Sequence[PartialProof],
+        witnesses: Sequence[RLNWitnessInput],
+        rs: Optional[Sequence[int]] = None,
+        ss: Optional[Sequence[int]] = None,
+        metrics=None,
+    ) -> List[Tuple[tuple, RLNProofValues]]:
+        """Two-phase proving, phase 2, batched (partial_proof.rs:173-299):
+        each witness's proof from its member's partial proof, equal to
+        generate_proofs' at the same (r, s), each beside the values of the
+        public wires it attests to."""
+        with span("rln.finish_proofs"):
+            if not witnesses:
+                return []
+            if len(partials) != len(witnesses):
+                raise errors.ZerokitError(
+                    f"{len(partials)} partial proofs for {len(witnesses)} witnesses")
+            named, rs, ss = self._proof_inputs(witnesses, rs, ss)
+            return self._with_values(self.prover.finish_batch_public(partials, named, rs, ss,
+                                                                     metrics=metrics))
+
+    def generate_partial_proof(self, partial_witness: RLNPartialWitnessInput) -> PartialProof:
+        return self.generate_partial_proofs([partial_witness])[0]
 
     def finish_proof(
         self,
@@ -331,14 +385,9 @@ class RLN:
         r: Optional[int] = None,
         s: Optional[int] = None,
     ) -> Tuple[tuple, RLNProofValues]:
-        witness.validate_against_graph(self.graph)
-        values = proof_values_from_witness(witness)
-        named = self._batch_named_inputs([witness])
-        assignment = self.prover.full_assignments(named, 1)
-        r = r if r is not None else self._random_scalars(1)[0]
-        s = s if s is not None else self._random_scalars(1)[0]
-        proof = self.prover.finish_proof(partial, assignment, r, s)
-        return proof, values
+        rs = [r if r is not None else self._random_scalars(1)[0]]
+        ss = [s if s is not None else self._random_scalars(1)[0]]
+        return self.finish_proofs([partial], [witness], rs, ss)[0]
 
     # -- verification -------------------------------------------------------
 

@@ -17,6 +17,10 @@ proofs at every node instead.
     slot-file plan (circuit/witness_plan.py, made once at construction) and
     its Divs in one launch of W2 (circuit/witness_kernels.py), and gathers
     the signals into the (16, n_signals, B) Montgomery assignment.
+  * unknown_mask: the wires that two-phase proving cannot know before the
+    message, those reachable from its inputs (MESSAGE_INPUTS). The
+    evaluator computes a partial witness as a full one with those inputs
+    at 0: the other wires do not depend on them.
   * Pow/Idiv/Mod/Shl never occur in RLN circuits; compile_graph rejects
     graphs holding them (UnsupportedGraph) and the prover then serves such a
     graph with the exact host interpreter (witness_host.py).
@@ -87,6 +91,35 @@ _RICH_MAP = {
     g.OP_GEQ: F_GEQ,
 }
 _UNSUPPORTED = {g.OP_POW, g.OP_IDIV, g.OP_MOD, g.OP_SHL}
+
+
+# the inputs a partial witness leaves unknown (the message's; reference
+# witness.rs:887-937, RLNPartialWitnessInput.named_inputs_partial)
+MESSAGE_INPUTS = ("messageId", "selectorUsed", "x", "externalNullifier")
+
+
+def unknown_mask(graph: g.Graph, message_inputs: Sequence[str] = MESSAGE_INPUTS) -> np.ndarray:
+    """(n_signals,) bool: the wires that calc_witness_partial leaves None
+    when the message inputs are unknown, found from the graph alone: an
+    input node is unknown unless it reads position 0 or an input other
+    than the message's, and a node is unknown if any operand is (the
+    reference propagates None through every operand, graph.rs:274-312)."""
+    known_pos = np.zeros(g.inputs_size(graph.nodes), dtype=bool)
+    known_pos[0] = True
+    for name, (offset, length) in graph.input_mapping.items():
+        if name not in message_inputs:
+            known_pos[offset:offset + length] = True
+    unknown = np.zeros(len(graph.nodes), dtype=bool)
+    for i, node in enumerate(graph.nodes):
+        if node.kind == g.K_INPUT:
+            unknown[i] = node.a >= len(known_pos) or not known_pos[node.a]
+        elif node.kind == g.K_UNO:
+            unknown[i] = unknown[node.a]
+        elif node.kind == g.K_DUO:
+            unknown[i] = unknown[node.a] or unknown[node.b]
+        elif node.kind != g.K_CONST:
+            unknown[i] = unknown[node.a] or unknown[node.b] or unknown[node.c]
+    return unknown[np.asarray(graph.signals, dtype=np.int64)]
 
 
 class UnsupportedGraph(ValueError):

@@ -13,12 +13,17 @@ of per-proof scalar vectors:
 Base sets pad to a multiple of PAD_GRANULARITY (infinity points, zero
 scalars) when they hold more than 64 points; batches wider than LANE_BATCH
 stream through passes of LANE_BATCH lanes.
+
+An MSM may also be built over a fixed subset of a query (`index`): the
+partial and the finish of two-phase proving walk only the points of the
+wires they know or do not know. It takes the whole query's scalar vectors
+and reads them at its positions, and pads to a multiple of K_BLOCK only.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -108,6 +113,12 @@ def table_rows(cv: CurveOps, points: torch.Tensor, n: int, n_windows: int = N_WI
     return rows.view(n_windows * n, -1)
 
 
+def subset_size(count: int) -> int:
+    """Points a subset MSM of `count` points holds: the next multiple of
+    K_BLOCK, at least one block."""
+    return max(K_BLOCK, -(-count // K_BLOCK) * K_BLOCK)
+
+
 def _window_group(batch: int, components: int, n: int, n_windows: int = N_WINDOWS) -> int:
     """Windows a pass of `batch` lanes over n points sorts and scans at once."""
     g = min(32, n_windows)
@@ -184,26 +195,45 @@ class MSM:
     """MSM over one fixed base set. adapter = ff.fq2.FqAdapter (G1) or Fq2Adapter (G2)."""
 
     def __init__(self, points, adapter, device="cuda", n_windows: int = N_WINDOWS,
-                 c_bits: int = C_BITS):
+                 c_bits: int = C_BITS, index: Optional[Sequence[int]] = None,
+                 size: Optional[int] = None):
         """points: list of affine points as ints (G1: (x, y); G2:
-        ((x0,x1),(y0,y1))). None encodes the point at infinity."""
+        ((x0,x1),(y0,y1))). None encodes the point at infinity. index: the
+        positions of a fixed subset of points, to build the MSM over those
+        points alone, padded with infinity to `size` (default
+        subset_size); it is then called with scalar vectors as long as
+        points, and reads them at index."""
         self.adapter = adapter
         self.curve = CurveOps(adapter)
         self.device = resolve_device(device)
         self.n_windows = n_windows
         self.c_bits = c_bits
         self.lane_batch = LANE_BATCH
+        points = self._take(points, index)
         self.n_real = len(points)
-        pad_to = max(
-            PAD_GRANULARITY,
-            ((len(points) + PAD_GRANULARITY - 1) // PAD_GRANULARITY) * PAD_GRANULARITY,
-        )
-        if len(points) > 64:
+        if index is not None:
+            pad_to = size or subset_size(len(points))
+        else:
+            pad_to = max(
+                PAD_GRANULARITY,
+                ((len(points) + PAD_GRANULARITY - 1) // PAD_GRANULARITY) * PAD_GRANULARITY,
+            )
+        if len(points) > 64 or index is not None:
             points = list(points) + [None] * (pad_to - len(points))
         self.n = len(points)
         self.points = encode_affine_points(points, adapter).to(self.device)
         self._tables = None
         self._tables_lock = threading.Lock()
+
+    def _take(self, points, index):
+        """The points the MSM is over: the subset at index, or all. Sets
+        the scalar vectors' length (n_scalars) and the index on the device."""
+        self.n_scalars = len(points)
+        self.index = None
+        if index is None:
+            return points
+        self.index = torch.as_tensor(list(index), dtype=torch.int64, device=self.device)
+        return [points[i] for i in index]
 
     def tables(self) -> torch.Tensor:
         """AoS window-table rows (W*n, 16*C*2), built on first use, once
@@ -215,13 +245,16 @@ class MSM:
         return self._tables
 
     def scalars_padded(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
-        """Validates, masks and pads scalars (16, n_real, B) to (16, n, B)."""
-        if scalars_canon.shape[1] != self.n_real:
-            raise ValueError(f"expected {self.n_real} scalars, got {scalars_canon.shape[1]}")
+        """Validates, masks and pads scalars (16, n_scalars, B) to (16, n,
+        B); a subset MSM takes its positions first."""
+        if scalars_canon.shape[1] != self.n_scalars:
+            raise ValueError(f"expected {self.n_scalars} scalars, got {scalars_canon.shape[1]}")
         scalars = scalars_canon.to(self.device)
         if mask is not None:
             m = torch.as_tensor(mask, device=self.device)
             scalars = torch.where(m[None], scalars, torch.zeros_like(scalars))
+        if self.index is not None:
+            scalars = scalars[:, self.index]
         if self.n != self.n_real:
             pad = scalars.new_zeros((NUM_LIMBS, self.n - self.n_real, scalars.shape[2]))
             scalars = torch.cat([scalars, pad], dim=1)
@@ -237,8 +270,8 @@ class MSM:
         )
 
     def __call__(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
-        """scalars_canon: (16, n_real, B) canonical limbs. mask: optional
-        (n_real, B) bool; points with False contribute nothing. Returns
+        """scalars_canon: (16, n_scalars, B) canonical limbs. mask: optional
+        (n_scalars, B) bool; points with False contribute nothing. Returns
         projective accumulators (16, C, 3, B)."""
         return self.local(scalars_canon, mask)
 

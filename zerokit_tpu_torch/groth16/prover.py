@@ -19,10 +19,21 @@ host.public reads the batch's public wires z[1:num_inputs] to the host
 (public_wires): each proof attests to exactly these values, so
 prove_batch_public hands them back beside the proofs.
 
-Partial/finish (reference rln/src/partial_proof.rs:108-299): the witness is
-split by a known-mask; prove_partial precomputes the four MSMs over the
-known entries (with the alpha/beta offsets), finish_proof runs the
-complement MSMs, the h MSM and the blinding algebra.
+Partial/finish (reference rln/src/partial_proof.rs:108-299), batched: the
+wires split by the prover's one known-mask, the graph's (every wire but
+those reachable from the message inputs, witness_eval.unknown_mask; a
+prover without a graph takes its first partial proof's), and a partial
+proof of another mask is refused. On first use the prover builds MSMs
+over the finite points of a, b1, b2 and l at the known wires and at the
+unknown ones (MSM's `index`).
+prove_partial_batch runs the known ones over the lanes of a partial
+assignment (stage partial_msm; partial_assignments evaluates it on the
+device, stage partial_witness) and folds in alpha and beta.
+finish_batch / finish_batch_public run the passes of a full proof with
+the unknown subsets in place of a/b1/b2/l (stage msm_finish): each lane's
+partial sums are added on the device (span finish.sum) before to_affine,
+and the native batched assembly blinds them as it blinds a full proof.
+prove_partial / finish_proof are their one-lane calls.
 
 With a mesh (parallel/sharded.py), every rank calls the same methods with
 the same inputs (SPMD). The batch pads to _padded_batch(max(batch, dp))
@@ -34,13 +45,14 @@ splits, parallel/ntt_sharded.py) and runs their MSMs through ShardedMSMs
 and returns the whole batch's proofs and public wires, the proofs equal to
 the single-device proofs at the same (r, s). One device
 runs the same path with all lanes its own and no gather.
-prove_partial / finish_proof run through the same ShardedMSMs, whose
-__call__ splits and gathers the lanes over dp itself.
+The partial runs every lane on every rank through ShardedMSMs over the
+known subsets; the finish splits its lanes over dp as a full proof does.
 """
 
 from __future__ import annotations
 
 import random
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,13 +61,13 @@ import torch
 
 from ..circuit import graph as graphmod
 from ..circuit import witness_host
-from ..circuit.witness_eval import UnsupportedGraph, WitnessEvaluator, compile_graph
+from ..circuit.witness_eval import UnsupportedGraph, WitnessEvaluator, compile_graph, unknown_mask
 from ..constants import NUM_LIMBS, R
 from ..ff.field import FrField, decode_canonical_fast, encode_canonical_fast, resolve_device
 from ..ff.fq2 import Fq2Adapter, FqAdapter
 from ..hostmath import bn254
 from ..runtime.profiling import span, stage_timer
-from .msm import LANE_BATCH, MSM, FusedMSMGroup, _pad_lanes
+from .msm import LANE_BATCH, MSM, FusedMSMGroup, _pad_lanes, encode_affine_points, subset_size
 from .qap import WitnessMapper
 
 Proof = Tuple[object, object, object]  # (a: G1 affine, b: G2 affine, c: G1 affine)
@@ -104,6 +116,18 @@ class ProverError(ValueError):
     pass
 
 
+@dataclass
+class _Part:
+    """The MSMs of a, b1, b2 and l over the finite points of one side of a
+    known-mask: the wires a partial proof knows, or the rest, which the
+    finish walks. a, b1 and l share one padded size and run as one
+    FusedMSMGroup."""
+
+    msms: Dict[str, MSM]
+    group: Optional[FusedMSMGroup]
+    points_g1eq: int  # finite points a lane, a G2 point counted as three
+
+
 class Groth16Prover:
     def __init__(self, zkey, graph: graphmod.Graph, device="cuda", mesh=None):
         """zkey: a Zkey parsed by either package (the proving key carries
@@ -128,13 +152,14 @@ class Groth16Prover:
         self.n_wires = len(pk.a_query)
         self.mapper = WitnessMapper(zkey.matrices, self.device, mesh)
         if mesh is None:
-            def make(points, adapter):
-                return MSM(points, adapter, self.device)
+            def make(points, adapter, **subset):
+                return MSM(points, adapter, self.device, **subset)
         else:
             from ..parallel.sharded import ShardedMSM
 
-            def make(points, adapter):
-                return ShardedMSM(points, adapter, mesh)
+            def make(points, adapter, **subset):
+                return ShardedMSM(points, adapter, mesh, **subset)
+        self._make = make
         self.msm_a = make(pk.a_query, FqAdapter)
         self.msm_b1 = make(pk.b_g1_query, FqAdapter)
         self.msm_b2 = make(pk.b_g2_query, Fq2Adapter)
@@ -147,6 +172,12 @@ class Groth16Prover:
         self.last_batch: Dict[str, object] = {}
         if self.msm_a.n == self.msm_b1.n == self.msm_l.n:
             self._g1_group = FusedMSMGroup([self.msm_a, self.msm_b1, self.msm_l])
+        self.h_points = sum(p is not None for p in pk.h_query)
+        # two-phase proving: the one known-mask and its (known, unknown) parts, on first use
+        self._known: Optional[np.ndarray] = None
+        self._known_entries: Optional[List[bool]] = None
+        self._parts: Optional[Tuple[_Part, _Part]] = None
+        self._parts_lock = threading.Lock()
 
     def warm_up(self) -> None:
         """Runs once what a first batch runs, so that a service's first
@@ -247,6 +278,15 @@ class Groth16Prover:
         as the proof attests to them, canonical). Counts the lanes under
         metrics.counts["public_from_assignment"]."""
         mine = self._my_lanes(len(rs))
+        out = self._prove_lanes(self._mine_assignment(named_inputs, mine, metrics), rs, ss,
+                                metrics)
+        if metrics is not None:
+            metrics.count("public_from_assignment", len(rs))
+        return out
+
+    def _mine_assignment(self, named_inputs, mine: slice, metrics) -> torch.Tensor:
+        """The Montgomery assignment (16, n_wires, width) of this process's
+        lanes of the batch (padded with lane 0 to the mesh's size class)."""
         width = mine.stop - mine.start
         with span("prover.pad"):
             named = {
@@ -254,11 +294,7 @@ class Groth16Prover:
                 for name, cols in named_inputs.items()
             }
         with self._stage(metrics, "witness_eval"):
-            assignment = self.full_assignments(named, width)
-        out = self._prove_lanes(assignment[:, :, :width], rs, ss, metrics)
-        if metrics is not None:
-            metrics.count("public_from_assignment", len(rs))
-        return out
+            return self.full_assignments(named, width)[:, :, :width]
 
     def prove_batch_with_assignment(self, assignment, rs, ss, metrics=None) -> List[Proof]:
         """assignment: (16, n_wires, B) Montgomery limbs of the whole batch
@@ -267,13 +303,19 @@ class Groth16Prover:
         assignment = _pad_lanes(assignment.to(self.device), mine.stop)[:, :, mine]
         return self._prove_lanes(assignment, rs, ss, metrics)[0]
 
-    def _prove_lanes(self, assignment, rs, ss, metrics) -> Tuple[List[Proof], List[List[int]]]:
+    def _prove_lanes(self, assignment, rs, ss, metrics,
+                     results=None) -> Tuple[List[Proof], List[List[int]]]:
         """This process's lanes (16, n_wires, width): their public wires read
         to the host, then the witness map and the MSMs in passes of
         LANE_BATCH lanes (a ragged pass padded to its size class, its
         padding lanes replicating its first); under a mesh the affine
         results and the public wires are gathered over dp. Then every
-        lane's proof, and every lane's public wires."""
+        lane's proof, and every lane's public wires. results(part, lo)
+        gives a pass's affine points, lo its first lane (default: a full
+        proof's, _affine_results)."""
+        if results is None:
+            def results(part, lo):
+                return self._affine_results(part, metrics)
         batch = len(rs)
         if metrics is not None:
             metrics.batch = batch
@@ -284,7 +326,7 @@ class Groth16Prover:
             part = assignment[:, :, lo : lo + LANE_BATCH]
             width = part.shape[2]
             part = _pad_lanes(part, _padded_batch(width)).contiguous()
-            res = self._affine_results(part, metrics)
+            res = results(part, lo)
             for key in _POINT_KEYS:
                 points[key].extend(res[key][:width])
         if self.mesh is not None:
@@ -391,79 +433,221 @@ class Groth16Prover:
 
     # -- partial / finish ----------------------------------------------------
 
+    @property
+    def known_wires(self) -> np.ndarray:
+        """(n_wires,) bool: the wires this prover's partial proofs know
+        (_split's known-mask)."""
+        self._split()
+        return self._known
+
     def _shifted_mask(self, mask: Sequence[bool]) -> np.ndarray:
         """PartialProof mask (len n_wires-1) -> per-wire mask incl. wire 0."""
         if len(mask) != self.n_wires - 1:
             raise ProverError(
-                f"mask length {len(mask)} != {self.n_wires - 1} assignment entries"
+                f"partial mask has {len(mask)} entries, expected {self.n_wires - 1}"
             )
         return np.concatenate([[True], np.asarray(mask, dtype=bool)])
 
-    def _lanes(self, x: torch.Tensor) -> torch.Tensor:
-        """(16, n, 1) -> (16, n, _batch_target(1)) on the device, the lanes
-        replicating lane 0."""
-        width = self._batch_target(1)
-        return x.to(self.device).expand(-1, -1, width).contiguous()
+    def _split(self, mask: Optional[Sequence[bool]] = None) -> Tuple[_Part, _Part]:
+        """The (known, unknown) parts of the prover's one known-mask, built
+        on first use (their window tables at their first pass). The mask is
+        the graph's: every wire but witness_eval.unknown_mask's. A prover
+        without a graph takes the first mask (PartialProof.mask, entries
+        1..) it is given. Any other mask raises ProverError: masks come
+        from clients' bytes, and parts for each would fill the device."""
+        with self._parts_lock:
+            if self._parts is None:
+                if self.graph is not None:
+                    wire_known = ~unknown_mask(self.graph)
+                elif mask is None:
+                    raise ProverError("a prover without a graph takes its known-mask from its "
+                                      "first partial proof")
+                else:
+                    wire_known = self._shifted_mask(mask)
+                self._parts = (self._part(wire_known), self._part(~wire_known))
+                self._known, self._known_entries = wire_known, [bool(k) for k in wire_known[1:]]
+        if mask is not None and mask is not self._known_entries:
+            self._shifted_mask(mask)
+            if list(mask) != self._known_entries:
+                raise ProverError("a partial proof's mask is not this prover's known-mask")
+        return self._parts
+
+    def _part(self, wires: np.ndarray) -> _Part:
+        pk = self.zkey.pk
+        queries = {"a": (pk.a_query, wires, FqAdapter), "b1": (pk.b_g1_query, wires, FqAdapter),
+                   "b2": (pk.b_g2_query, wires, Fq2Adapter),
+                   "l": (pk.l_query, wires[self.num_inputs:], FqAdapter)}
+        index = {key: [i for i, p in enumerate(q) if on[i] and p is not None]
+                 for key, (q, on, _) in queries.items()}
+        g1 = subset_size(max(len(index[key]) for key in ("a", "b1", "l")))
+        msms = {key: self._make(q, adapter, index=index[key], size=None if key == "b2" else g1)
+                for key, (q, _, adapter) in queries.items()}
+        group = None
+        if msms["a"].n == msms["b1"].n == msms["l"].n:
+            group = FusedMSMGroup([msms["a"], msms["b1"], msms["l"]])
+        g1eq = len(index["a"]) + len(index["b1"]) + 3 * len(index["b2"]) + len(index["l"])
+        return _Part(msms, group, g1eq)
+
+    def finish_points(self) -> int:
+        """The finite points a finish walks a lane (a G2 point counted as
+        three): the unknown wires' of a, b1, b2 and l and all of h's."""
+        return self._split()[1].points_g1eq + self.h_points
+
+    def _part_accs(self, part: _Part, z_canon: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The projective accumulators (16, C, 3, B) of a part's four MSMs
+        over the lanes of the canonical assignment z_canon (16, n_wires, B)."""
+        aux = z_canon[:, self.num_inputs:]
+        if part.group is not None:
+            a, b1, l_acc = part.group([z_canon, z_canon, aux])
+        else:
+            a, b1, l_acc = (part.msms["a"].local(z_canon), part.msms["b1"].local(z_canon),
+                            part.msms["l"].local(aux))
+        return {"a": a, "b1": b1, "b2": part.msms["b2"].local(z_canon), "l": l_acc}
+
+    def partial_assignments(self, named_inputs: Dict[str, Sequence[Sequence[int]]], batch: int,
+                            metrics=None) -> torch.Tensor:
+        """The Montgomery assignment (16, n_wires, batch) of `batch` partial
+        witnesses, named as full_assignments takes them with the message
+        inputs at 0: the wires those reach are unknown_mask's, which no
+        partial proof reads."""
+        with self._stage(metrics, "partial_witness"), span("partial.witness"):
+            return self.full_assignments(named_inputs, batch)[:, :, :batch]
+
+    def prove_partial_batch(self, assignment: torch.Tensor, metrics=None) -> List[PartialProof]:
+        """One partial proof a lane of the Montgomery assignment (16,
+        n_wires, B), whose unknown wires may hold anything: the MSMs over
+        the known wires' finite points of the prover's known-mask (_split),
+        alpha and beta folded in (partial_proof.rs:159-170). Counts the
+        lanes under metrics.counts["partials_made"]."""
+        known, _ = self._split()
+        mask = self._known_entries
+        batch = assignment.shape[2]
+        with self._stage(metrics, "partial_msm"), span("partial.msm"):
+            z_canon = FrField.from_mont(assignment.to(self.device))
+            accs = self._part_accs(known, z_canon)
+            pts = {key: known.msms[key].to_affine_ints(acc) for key, acc in accs.items()}
+        pk = self.zkey.pk
+        if metrics is not None:
+            metrics.count("partials_made", batch)
+        return [
+            PartialProof(
+                mask=mask,
+                partial_pi_a=bn254.G1.add(pk.vk.alpha_g1, pts["a"][b]),
+                partial_rho=bn254.G1.add(pk.beta_g1, pts["b1"][b]),
+                partial_pi_b=bn254.G2.add(pk.vk.beta_g2, pts["b2"][b]),
+                partial_pi_c=pts["l"][b],
+            )
+            for b in range(batch)
+        ]
 
     def prove_partial(self, partial_values: Sequence[Optional[int]]) -> PartialProof:
         """partial_values: assignment entries (instance[1:] || witness), None =
-        unknown (reference PartialAssignment, partial_proof.rs:17-28)."""
-        mask = [v is not None for v in partial_values]
-        wire_mask = self._shifted_mask(mask)
+        unknown (reference PartialAssignment, partial_proof.rs:17-28): the
+        one-lane prove_partial_batch; the known entries must be the
+        prover's known-mask."""
+        self._split([v is not None for v in partial_values])
         z = [1] + [0 if v is None else int(v) for v in partial_values]
-        z_canon = self._lanes(encode_canonical_fast(z).reshape(NUM_LIMBS, self.n_wires, 1))
-        m = torch.from_numpy(wire_mask[:, None])
-        a_pt = self.msm_a.to_affine_ints(self.msm_a(z_canon, mask=m))[0]
-        b1_pt = self.msm_b1.to_affine_ints(self.msm_b1(z_canon, mask=m))[0]
-        b2_pt = self.msm_b2.to_affine_ints(self.msm_b2(z_canon, mask=m))[0]
-        aux = z_canon[:, self.num_inputs :]
-        l_pt = self.msm_l.to_affine_ints(self.msm_l(aux, mask=m[self.num_inputs :]))[0]
+        canon = encode_canonical_fast(z).reshape(NUM_LIMBS, self.n_wires, 1)
+        return self.prove_partial_batch(FrField.to_mont(canon.to(self.device)))[0]
+
+    def finish_batch(self, partials: Sequence[PartialProof], assignment: torch.Tensor,
+                     rs: Sequence[int], ss: Sequence[int], metrics=None) -> List[Proof]:
+        """assignment: (16, n_wires, B) Montgomery limbs of the whole batch's
+        full witnesses (on every rank under a mesh), B >= len(rs);
+        partials: each lane's partial proof, of the prover's known-mask
+        (_split; another raises ProverError). Each lane's
+        proof, equal to the full proof at the same (r, s)."""
+        mine = self._my_lanes(len(rs))
+        assignment = _pad_lanes(assignment.to(self.device), mine.stop)[:, :, mine]
+        return self._finish_lanes(partials, assignment, rs, ss, metrics)[0]
+
+    def finish_batch_public(self, partials: Sequence[PartialProof],
+                            named_inputs: Dict[str, Sequence[Sequence[int]]], rs: Sequence[int],
+                            ss: Sequence[int], metrics=None) -> Tuple[List[Proof], List[List[int]]]:
+        """finish_batch from the witnesses' named inputs, evaluated as
+        prove_batch_public evaluates them: (every lane's proof, every lane's
+        public wires)."""
+        mine = self._my_lanes(len(rs))
+        return self._finish_lanes(partials, self._mine_assignment(named_inputs, mine, metrics),
+                                  rs, ss, metrics)
+
+    def _finish_lanes(self, partials, assignment, rs, ss, metrics):
+        """This process's lanes of a finish through _prove_lanes, with
+        _finish_results for a pass's points. Counts the batch's lanes under
+        finish_lanes and the finite points its MSMs walked (a G2 point as
+        three) under finish_points_g1eq."""
+        if len(partials) != len(rs):
+            raise ProverError(f"{len(partials)} partial proofs for {len(rs)} lanes")
+        for p in partials:
+            self._split(p.mask)
+        _, unknown = self._split()
+        mine = self._my_lanes(len(rs))
+        lanes = (list(partials) + [partials[0]] * (mine.stop - len(partials)))[mine]
+        with self._stage(metrics, "msm_finish"):
+            sums = self._partial_sums(unknown, lanes)
+
+        def results(part, lo):
+            width = part.shape[2]
+            pass_sums = {key: _pad_lanes(v[..., lo:lo + width], width) for key, v in sums.items()}
+            return self._finish_results(unknown, part, pass_sums, metrics)
+
+        out = self._prove_lanes(assignment, rs, ss, metrics, results)
+        if metrics is not None:
+            metrics.count("finish_lanes", len(rs))
+            metrics.count("finish_points_g1eq",
+                          len(rs) * (unknown.points_g1eq + self.h_points))
+        return out
+
+    def _partial_sums(self, unknown: _Part, partials) -> Dict[str, torch.Tensor]:
+        """The lanes' partial sums as the finish adds them to its own, on the
+        device (16, C, 3, B) projective: each known-wire MSM, the alpha and
+        beta that the partial proof folded in taken out again (the native
+        assembly adds them), so that the sum is the whole MSM of a full
+        proof."""
         pk = self.zkey.pk
-        # alpha/beta offsets are folded in at prove_partial time
-        # (partial_proof.rs:159-170); a_query[0] (wire 0) is in the masked
-        # MSM above since wire 0 is always "known".
-        pi_a = bn254.G1.add(pk.vk.alpha_g1, a_pt)
-        rho = bn254.G1.add(pk.beta_g1, b1_pt)
-        pi_b = bn254.G2.add(pk.vk.beta_g2, b2_pt)
-        return PartialProof(
-            mask=mask, partial_pi_a=pi_a, partial_rho=rho, partial_pi_b=pi_b, partial_pi_c=l_pt
-        )
+        cols = {"a": ([p.partial_pi_a for p in partials], bn254.G1.neg(pk.vk.alpha_g1)),
+                "b1": ([p.partial_rho for p in partials], bn254.G1.neg(pk.beta_g1)),
+                "b2": ([p.partial_pi_b for p in partials], bn254.G2.neg(pk.vk.beta_g2)),
+                "l": ([p.partial_pi_c for p in partials], None)}
+        out = {}
+        with span("finish.sum"):
+            for key, (points, offset) in cols.items():
+                msm = unknown.msms[key]
+                cv = msm.curve
+                if offset is not None:
+                    points = points + [offset]
+                proj = cv.from_affine(encode_affine_points(points, msm.adapter).to(self.device))
+                if offset is not None:
+                    lanes, off = proj[..., :-1], proj[..., -1:]
+                    proj = cv.add(lanes, off.expand(lanes.shape))
+                out[key] = proj
+        return out
+
+    def _finish_results(self, unknown: _Part, assignment, sums, metrics) -> Dict[str, list]:
+        """A finish pass over the lanes of assignment (16, n_wires, B): the
+        witness map, the unknown-wire MSMs plus the lanes' partial sums
+        (sums, (16, C, 3, B) a query), and the h MSM: their affine results,
+        one list per query, as _affine_results gives a full proof's."""
+        with self._stage(metrics, "qap_witness_map"):
+            h = self.mapper.witness_map(assignment)
+        with self._stage(metrics, "from_mont"):
+            z_canon = FrField.from_mont(assignment)
+            h_canon = FrField.from_mont(h)
+        with self._stage(metrics, "msm_finish"):
+            accs = self._part_accs(unknown, z_canon)
+            with span("finish.sum"):
+                accs = {key: unknown.msms[key].curve.add(acc, sums[key])
+                        for key, acc in accs.items()}
+            pts = {key: unknown.msms[key].to_affine_ints(acc) for key, acc in accs.items()}
+        with self._stage(metrics, "msm_h"):
+            pts["h"] = self.msm_h.to_affine_ints(self.msm_h.local(h_canon))
+        return pts
 
     def finish_proof(self, partial: PartialProof, assignment: torch.Tensor, r: int,
                      s: int) -> Proof:
-        """assignment: (16, n_wires, 1) Montgomery limbs of the full witness."""
-        wire_known = self._shifted_mask(partial.mask)
-        # complement mask: unknown wires only; wire 0 was covered by partial
-        m = torch.from_numpy((~wire_known)[:, None])
-        assignment = self._lanes(assignment[:, :, :1])
-        h = self.mapper.witness_map(assignment)
-        z_canon = FrField.from_mont(assignment)
-        h_canon = FrField.from_mont(h)
-        a_rem = self.msm_a.to_affine_ints(self.msm_a(z_canon, mask=m))[0]
-        b1_rem = self.msm_b1.to_affine_ints(self.msm_b1(z_canon, mask=m))[0]
-        b2_rem = self.msm_b2.to_affine_ints(self.msm_b2(z_canon, mask=m))[0]
-        aux = z_canon[:, self.num_inputs :]
-        l_rem = self.msm_l.to_affine_ints(self.msm_l(aux, mask=m[self.num_inputs :]))[0]
-        h_acc = self.msm_h.to_affine_ints(self.msm_h(h_canon))[0]
-
-        pk = self.zkey.pk
-        r %= R
-        s %= R
-        g_a = bn254.G1.add(partial.partial_pi_a, a_rem)
-        g_a = bn254.G1.add(g_a, bn254.G1.mul(pk.delta_g1, r))
-        if r != 0:
-            g1_b = bn254.G1.add(partial.partial_rho, b1_rem)
-            g1_b = bn254.G1.add(g1_b, bn254.G1.mul(pk.delta_g1, s))
-        else:
-            g1_b = None
-        g2_b = bn254.G2.add(partial.partial_pi_b, b2_rem)
-        g2_b = bn254.G2.add(g2_b, bn254.G2.mul(pk.vk.delta_g2, s))
-        l_acc = bn254.G1.add(partial.partial_pi_c, l_rem)
-        g_c = bn254.G1.add(bn254.G1.mul(g_a, s), bn254.G1.mul(g1_b, r))
-        g_c = bn254.G1.add(g_c, bn254.G1.neg(bn254.G1.mul(pk.delta_g1, r * s % R)))
-        g_c = bn254.G1.add(g_c, l_acc)
-        g_c = bn254.G1.add(g_c, h_acc)
-        return (g_a, g2_b, g_c)
+        """assignment: (16, n_wires, >= 1) Montgomery limbs of the full
+        witness: the one-lane finish_batch."""
+        return self.finish_batch([partial], assignment[:, :, :1], [r], [s])[0]
 
 
 def random_batch_inputs(rng, batch: int, depth: int):

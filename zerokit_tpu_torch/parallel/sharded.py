@@ -29,7 +29,7 @@ import contextlib
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -211,7 +211,9 @@ class ShardedMSM(MSM):
     is the same MSM on the lanes a rank already holds, with no dp gather."""
 
     def __init__(self, points, adapter, mesh: Mesh, n_windows: int = N_WINDOWS,
-                 c_bits: int = C_BITS):
+                 c_bits: int = C_BITS, index: Optional[Sequence[int]] = None,
+                 size: Optional[int] = None):
+        """index and size as MSM's: an MSM over a fixed subset of points."""
         self.adapter = adapter
         self.curve = CurveOps(adapter)
         self.mesh = mesh
@@ -219,9 +221,10 @@ class ShardedMSM(MSM):
         self.n_windows = n_windows
         self.c_bits = c_bits
         self.lane_batch = LANE_BATCH
+        points = self._take(points, index)
         self.n_real = len(points)
         gran = mesh.tp * K_BLOCK
-        padded = pad_points_for_sharding(points, gran)
+        padded = pad_points_for_sharding(list(points) + [None] * ((size or 0) - len(points)), gran)
         self.n = max(gran, len(padded))
         self.n_loc = self.n // mesh.tp
         self.lo = mesh.tp_index * self.n_loc
@@ -256,8 +259,8 @@ class ShardedMSM(MSM):
         return _tree_reduce_points(self.curve, all_gather(self.mesh, acc, "tp"))
 
     def __call__(self, scalars_canon: torch.Tensor, mask=None) -> torch.Tensor:
-        """scalars_canon: (16, n_real, B) canonical limbs of the whole batch,
-        the same on every rank; mask: optional (n_real, B) or (n_real, 1)
+        """scalars_canon: (16, n_scalars, B) canonical limbs of the whole batch,
+        the same on every rank; mask: optional (n_scalars, B) or (n_scalars, 1)
         bool, False entries contribute nothing. Returns the projective
         accumulators (16, C, 3, B) on every rank."""
         batch = scalars_canon.shape[2]
@@ -266,7 +269,7 @@ class ShardedMSM(MSM):
         mine = slice(d * per, (d + 1) * per)
         scalars = _pad_lanes(scalars_canon, per * dp)[:, :, mine]
         if mask is not None:
-            mask = torch.as_tensor(mask).expand(self.n_real, batch)
+            mask = torch.as_tensor(mask).expand(self.n_scalars, batch)
             mask = _pad_lanes(mask, per * dp)[:, mine]
         acc = self.local(scalars, mask)
         full = all_gather(self.mesh, acc, "dp")  # (dp, 16, C, 3, per)
